@@ -3,13 +3,25 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from `pips_ipmpp_tpu_torch/csrc`, checks
-each against its plain PyTorch version on the card, then drives the
-solver's main path twice — the facade on the benchmark's flagship shape
-and the IPMSolver on its big-leaf shape — and checks each solve against the
-port's own f64 (Cholesky, kernel-free) solve of the same LP.  Every failure
-raises and exits nonzero.  The last line of standard output is a JSON
-object naming the device; the line before it lists the kernels with their
-launch counts, errors and times.
+each against its plain PyTorch version on the card at the shapes the solver
+gives it, then drives every ported path once, each with the kernels'
+launch counts set to 0 just before it and read just after:
+
+  - the facade on the benchmark's flagship dense shape and the IPMSolver
+    on its big-leaf shape (LDL^T kernel), each against the port's own f64
+    (Cholesky, kernel-free) solve of the same LP;
+  - the facade on the 8 x 8192 sparse instance (ELL kernel in the leaf CG,
+    LDL^T kernel at the root) and the f64 sparse solve, both against the
+    instance's HiGHS f64 oracle objective;
+  - the opt-in sweep path (sweep kernel at leaves and root) on the JAX
+    package's own sweep acceptance LP, against its analytic optimum.
+
+`paths()` defines the solves; `profile_port.py` profiles the same ones.
+
+Every failure raises and exits nonzero.  The last line of standard output
+is a JSON object naming the device, the line before it the card's name and
+power limit, the line before that the kernels with their launch counts,
+errors, times and bounds.
 
 Needs one CUDA device; imports neither JAX nor the JAX package.
 """
@@ -20,30 +32,52 @@ import statistics
 import subprocess
 import sys
 import time
-from functools import partial
+from functools import lru_cache, partial
 
 import torch
 
 from pips_ipmpp_tpu_torch import (Options, PIPSIPMppTorchInterface,
                                   TerminationStatus, _build)
+from pips_ipmpp_tpu_torch.core.lp import make_arrowhead_lp
 from pips_ipmpp_tpu_torch.core.options import ScalerType
-from pips_ipmpp_tpu_torch.io.synthetic import random_arrowhead_lp
+from pips_ipmpp_tpu_torch.io.synthetic import (random_arrowhead_lp,
+                                               random_sparse_arrowhead_lp)
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
-from pips_ipmpp_tpu_torch.linalg import ldl
+from pips_ipmpp_tpu_torch.linalg import ldl, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
+                                                        batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
 
+DEVICE = "cuda"
 # bench.py's flagship and big-leaf shapes (64 scenario blocks)
 FLAGSHIP = dict(N=64, n=256, mE=128, mI=128, n0=64, m0E=32, m0I=32, mEl=32,
                 mIl=32)
 BIGLEAF = dict(N=64, n=1024, mE=512, mI=512, n0=64, m0E=32, m0I=32, mEl=32,
                mIl=32)
 # (batch, edge, positive pivots): the leaves of the flagship, 512-block and
-# big-leaf shapes (SPD), and the flagship and linking-dominated roots
-# ([[SPD, B'], [B, -SPD]] with n0 = 64 first-stage columns)
+# big-leaf shapes (SPD), the flagship and linking-dominated roots
+# ([[SPD, B'], [B, -SPD]] with n0 = 64 first-stage columns) and the sparse
+# path's root (n0 = 16 of 32)
 LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
-              (1, 192, 64), (1, 480, 64)]
+              (1, 192, 64), (1, 480, 64), (1, 32, 16)]
+# the sweep kernel at the flagship leaf (SPD) and root (quasidefinite), and
+# at the sweep solve's leaves (a = 2) and root (a = 3, n0 = 1), unpadded so
+# that the wrapper's identity padding to 16 runs too
+SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1)]
+# the JAX package's reference-scale sparse acceptance instance
+# (tests/test_sparse.py:186-201) and its HiGHS f64 oracle objective
+SPARSE = dict(N=8, n=8192, mE=4096, mI=4096, nnz_per_row=10, n0=16, m0E=4,
+              m0I=4, mEl=4, mIl=4)
+SPARSE_ORACLE = -27135.692927917404
+# the sweep solve's LP (two_scenario_lp below) and its analytic optimum
+SWEEP_OPTIMUM = 7.0
 OBJ_RTOL = 1e-3      # the JAX package's f32-vs-f64 bound (test_pallas.py:28)
+F64_ORACLE_RTOL = 1e-6
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 and f64
+# FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 def require(cond, msg):
@@ -67,11 +101,82 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
+def device_ms(fn, reps):
+    """Device milliseconds of one `fn()`: the profiler's sum of the device
+    time of every kernel, copy and fill that `reps` runs launch, over
+    `reps`, after one warm-up run.  Host time between launches is not in
+    it, so a kernel of a few microseconds is not hidden behind its
+    launch."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / reps
+
+
+def timings(kernel, plain, library, reps, plain_reps):
+    """Device and wall (CUDA events around one call, host dispatch
+    included) milliseconds of the kernel, its plain version and, where
+    there is one, the library call computing the same function."""
+    out = dict(ms=device_ms(kernel, reps), wall_ms=cuda_ms(kernel, reps),
+               plain_ms=device_ms(plain, plain_reps),
+               plain_wall_ms=cuda_ms(plain, plain_reps),
+               library_ms=None, library_wall_ms=None)
+    if library is not None:
+        out.update(library_ms=device_ms(library, reps),
+                   library_wall_ms=cuda_ms(library, reps))
+    return out
+
+
+def bound(nbytes, flops, dtype):
+    """The least time (ms) for the work: bytes over the memory rate or
+    operations over the peak rate, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---- launch counts ---------------------------------------------------------
+COUNTED = {"ldl_inverse_f32": ldl.ldl_inverse_factors,
+           "ell_spmm": spmv.ell_spmm,
+           "sweep_inverse": sweep.sweep_inverse}
+
+
+def reset_counts():
+    for fn in COUNTED.values():
+        fn.launches = 0
+    batched_pcg.readbacks = batched_pcg.calls = batched_pcg.capped = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def drive(name, run, kernels):
+    """Drive one path with every count set to 0 just before it; require a
+    launch of each of its `kernels`.  Returns (run's result, counts)."""
+    reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    out["cg_readbacks"] = batched_pcg.readbacks
+    out["cg_calls"] = batched_pcg.calls
+    out["cg_capped"] = batched_pcg.capped
+    for k in kernels:
+        require(counts[k] > 0, f"{name}: the path launched no {k}")
+    return out, counts
+
+
+# ---- kernel checks against the plain versions --------------------------------
 def ldl_input(B, a, n_pos, gen):
     """f64 symmetric quasidefinite batch on the card (SPD when n_pos=a)."""
-    dev = "cuda"
-    R = torch.randn(B, a, a, generator=gen, dtype=torch.float64, device=dev)
-    A = R @ R.mT / a + torch.eye(a, dtype=torch.float64, device=dev)
+    R = torch.randn(B, a, a, generator=gen, dtype=torch.float64,
+                    device=DEVICE)
+    A = R @ R.mT / a + torch.eye(a, dtype=torch.float64, device=DEVICE)
     if n_pos < a:
         A[:, n_pos:, :n_pos] *= 0.5
         A[:, :n_pos, n_pos:] = A[:, n_pos:, :n_pos].mT
@@ -79,14 +184,13 @@ def ldl_input(B, a, n_pos, gen):
     return A
 
 
-def rel_err(X, d, ref_inv):
-    inv = ldl.inverse_from_factors(X.double(), d.double())
-    diff = (inv - ref_inv).abs().amax()
+def rel_err(inv, ref_inv):
+    diff = (inv.double() - ref_inv).abs().amax()
     return float(diff / ref_inv.abs().amax()), float(diff)
 
 
 def check_ldl_kernel():
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for B, a, n_pos in LDL_SHAPES:
         A = ldl_input(B, a, n_pos, gen)
@@ -96,16 +200,32 @@ def check_ldl_kernel():
         Xk, dk = ldl.ldl_inverse_factors(A32)
         torch.cuda.synchronize()
         Xp, dp = ldl.ldl_inverse_factors_ref(A32)           # plain f32
-        err_k, abs_k = rel_err(Xk, dk, ref_inv)
-        err_p, _ = rel_err(Xp, dp, ref_inv)
+        err_k, abs_k = rel_err(ldl.inverse_from_factors(Xk.double(),
+                                                        dk.double()), ref_inv)
+        err_p, _ = rel_err(ldl.inverse_from_factors(Xp.double(),
+                                                    dp.double()), ref_inv)
         signs = bool(torch.equal(torch.sign(dk.double()), torch.sign(dr)))
         ok = bool(ldl.inverse_ok(Xk, dk, n_pos))
-        ms = cuda_ms(lambda: ldl.ldl_inverse_factors(A32), 10)
-        plain_ms = cuda_ms(lambda: ldl.ldl_inverse_factors_ref(A32), 3)
+        library = None
+        if n_pos == a:
+            # the SPD counterpart of the same work in one library pair:
+            # Cholesky and the triangular inverse
+            eye = torch.eye(a, dtype=torch.float32, device=DEVICE)
+
+            def library():
+                L, _ = torch.linalg.cholesky_ex(A32)
+                return torch.linalg.solve_triangular(L, eye, upper=False)
+
+        times = timings(lambda: ldl.ldl_inverse_factors(A32),
+                        lambda: ldl.ldl_inverse_factors_ref(A32), library,
+                        10, 3)
+        # LDL^T (a^3/3 flops) + the unit-lower inverse (a^3/3)
+        bound_ms, bound_by = bound((2 * B * a * a + B * a) * 4,
+                                   B * 2 * a ** 3 / 3, torch.float32)
         row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
                    plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
-                   pivot_signs_equal=signs, inertia_ok=ok, ms=ms,
-                   plain_ms=plain_ms)
+                   pivot_signs_equal=signs, inertia_ok=ok, **times,
+                   bound_ms=bound_ms, bound_by=bound_by)
         print("ldl_check", json.dumps(row), flush=True)
         require(err_k <= 4.0 * err_p + 1e-6,
                 f"LDL kernel error {err_k:.3e} > 4 x plain {err_p:.3e} + 1e-6 "
@@ -117,57 +237,193 @@ def check_ldl_kernel():
     return rows
 
 
-def check_solve(name, f32_run, f64_run, n_vars):
-    """Run the f64 reference, then the f32 main path with the launch count
-    reset just before it; check status, launches and objective.  Returns
-    the main path's LDL kernel launches."""
-    ldl.ldl_inverse_factors.launches = 0
-    ref = f64_run()
-    require(ldl.ldl_inverse_factors.launches == 0,
-            f"{name}: the f64 reference launched the LDL kernel")
-    ldl.ldl_inverse_factors.launches = 0
-    out = f32_run()
-    launches = ldl.ldl_inverse_factors.launches
-    rel = abs(out["objective"] - ref["objective"]) / max(
-        abs(ref["objective"]), 1.0)
-    row = dict(case=name, status=out["status"].name,
-               iterations=out["iterations"], solve_s=out["solve_s"],
-               iter_per_s=out["iterations"] / out["solve_s"],
-               ldl_launches=launches, objective=out["objective"],
-               f64_objective=ref["objective"], f64_status=ref["status"].name,
-               f64_iterations=ref["iterations"], f64_solve_s=ref["solve_s"],
-               objective_rel_diff=rel)
-    print("main_path", json.dumps(row), flush=True)
-    require(out["status"] == TerminationStatus.SUCCESSFUL_TERMINATION,
-            f"{name}: status {out['status']}")
-    require(ref["status"] == TerminationStatus.SUCCESSFUL_TERMINATION,
-            f"{name}: f64 reference status {ref['status']}")
-    require(out["iterations"] > 0 and launches >= 2 * out["iterations"],
-            f"{name}: {launches} LDL launches for {out['iterations']} "
-            f"iterations")
-    require(rel <= OBJ_RTOL, f"{name}: objective off by {rel:.3e} relative")
-    x = out["x"]
-    require(tuple(x.shape) == (n_vars,) and bool(torch.isfinite(x).all()),
-            f"{name}: solution of shape {tuple(x.shape)} not finite")
-    return launches
+def block_csr(val, col, n):
+    """The ELL batch as one block-diagonal CSR matrix [N m, N n] (explicit
+    zeros dropped), for the library yardstick."""
+    N, m, K = val.shape
+    rows = torch.arange(N * m, device=val.device).repeat_interleave(K)
+    cols = (col.long() + n * torch.arange(N, device=val.device)[:, None,
+                                                                  None])
+    keep = val.reshape(-1) != 0
+    coo = torch.sparse_coo_tensor(
+        torch.stack([rows[keep], cols.reshape(-1)[keep]]),
+        val.reshape(-1)[keep], (N * m, N * n))
+    return coo.coalesce().to_sparse_csr()
 
 
-def facade_run(lp, factor_dtype):
-    iface = PIPSIPMppTorchInterface(
-        lp, Options(scaler=ScalerType.EQUILIBRIUM, max_gondzio_correctors=1,
-                    factor_dtype=factor_dtype), device="cuda")
+def check_ell_kernel(slp):
+    """The ELL kernel against its plain version on the operators the sparse
+    backend builds from the scaled 8 x 8192 instance: merged forward
+    [B; D], transposed [Bt | Dt] and squared values, c in {1, 24}, in f32
+    and f64.  Tolerance: max |kernel - plain| <= 1e-5 max |plain| in f32 and
+    <= 1e-12 max |plain| in f64 (summation order only)."""
+    lp = make_scaler(ScalerType.EQUILIBRIUM).scale(slp.to(DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    nS = slp.n0 + slp.mEl + slp.mIl
+    rows = []
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        be = SparseArrowBackend(lp.astype(torch.float64), factor_dtype=dtype)
+        for which, ell in (("fwd", be._M), ("bwd", be._Mt), ("sq", be._Msq)):
+            n_in = lp.n if which != "bwd" else lp.mE + lp.mI
+            csr = block_csr(ell.val, ell.col, n_in)
+            for c in (1, nS):
+                X = torch.randn(ell.N, n_in, c, generator=gen, dtype=dtype,
+                                device=DEVICE)
+                Yk = spmv.ell_spmm(ell.val, ell.col, X)
+                torch.cuda.synchronize()
+                Yp = spmv.ell_spmm_ref(ell.val, ell.col, X)
+                scale = float(Yp.abs().amax())
+                err = float((Yk - Yp).abs().amax())
+                X2 = X.reshape(-1, c)
+                lib_err = float((torch.sparse.mm(csr, X2).reshape(Yp.shape)
+                                 - Yp).abs().amax())
+                times = timings(
+                    lambda: spmv.ell_spmm(ell.val, ell.col, X),
+                    lambda: spmv.ell_spmm_ref(ell.val, ell.col, X),
+                    lambda: torch.sparse.mm(csr, X2), 20, 5)
+                nnz = int((ell.val != 0).sum())
+                bound_ms, bound_by = bound(
+                    ell.val.numel() * (X.element_size() + 4)
+                    + (X.numel() + Yp.numel()) * X.element_size(),
+                    2 * nnz * c, dtype)
+                row = dict(case=which, dtype=str(dtype).split(".")[-1],
+                           shape=list(ell.val.shape), c=c, max_abs_err=err,
+                           max_abs_y=scale, library_abs_err=lib_err,
+                           **times, bound_ms=bound_ms, bound_by=bound_by)
+                print("ell_check", json.dumps(row), flush=True)
+                require(err <= tol * scale,
+                        f"ELL kernel error {err:.3e} > {tol} x {scale:.3e} "
+                        f"({which}, {dtype}, c={c})")
+                rows.append(row)
+        del be
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_sweep_kernel():
+    """The sweep kernel and its plain f32 version against an f64
+    torch.linalg.inv: error <= 4 x the plain f32 error + 1e-6, and the
+    pivot signs of the quasidefinite inertia."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = []
+    for B, a, n_pos in SWEEP_SHAPES:
+        A = ldl_input(B, a, n_pos, gen)
+        A32 = A.float().contiguous()
+        ref_inv = torch.linalg.inv(A)
+        Ik, dk = sweep.sweep_inverse(A32)
+        torch.cuda.synchronize()
+        Ip, _ = sweep.sweep_inverse_ref(A32)
+        err_k, abs_k = rel_err(Ik, ref_inv)
+        err_p, _ = rel_err(Ip, ref_inv)
+        ok = bool(ldl.inverse_ok(Ik, dk, n_pos))
+        times = timings(lambda: sweep.sweep_inverse(A32),
+                        lambda: sweep.sweep_inverse_ref(A32),
+                        lambda: torch.linalg.inv(A32), 10, 3)
+        # the rank-16 update of the full matrix once per panel
+        bound_ms, bound_by = bound((2 * B * a * a + B * a) * 4,
+                                   B * 2 * a ** 3, torch.float32)
+        row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
+                   plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
+                   inertia_ok=ok, **times, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        print("sweep_check", json.dumps(row), flush=True)
+        require(err_k <= 4.0 * err_p + 1e-6,
+                f"sweep kernel error {err_k:.3e} > 4 x plain {err_p:.3e} "
+                f"+ 1e-6 at {[B, a, a]}")
+        require(ok, f"sweep kernel pivot signs wrong at {[B, a, a]}")
+        rows.append(row)
+    return rows
+
+
+# ---- solves ------------------------------------------------------------------
+def two_scenario_lp(dtype):
+    """The JAX package's sweep acceptance LP (tests/fixtures.py
+    two_scenario_linking_lp): two blocks of two columns with linking
+    columns and rows, optimum 7 at x0 = 2.  The JAX package's f32 sweep
+    path reaches SUCCESSFUL_TERMINATION on it; on the flagship it does not
+    (tests/test_sweep.py)."""
+    import numpy as np
+
+    first = dict(c=np.array([1.0]), A=np.zeros((0, 1)), b=np.zeros(0),
+                 C=np.zeros((0, 1)), iclow=np.zeros(0), clow=np.zeros(0),
+                 icupp=np.zeros(0), cupp=np.zeros(0), ixlow=np.array([1.0]),
+                 xlow=np.array([0.0]), ixupp=np.array([1.0]),
+                 xupp=np.array([3.0]), F0=np.array([[1.0]]),
+                 G0=np.array([[0.0]]))
+    block = dict(c=np.array([1.0, 2.0]), A=np.array([[1.0]]),
+                 B=np.array([[1.0, 1.0]]), b=np.array([4.0]),
+                 C=np.array([[0.0]]), D=np.array([[1.0, -1.0]]),
+                 iclow=np.array([0.0]), clow=np.array([0.0]),
+                 icupp=np.array([1.0]), cupp=np.array([2.0]),
+                 ixlow=np.ones(2), xlow=np.zeros(2), ixupp=np.ones(2),
+                 xupp=np.full(2, 5.0), F=np.array([[1.0, 0.0]]),
+                 G=np.array([[0.0, 1.0]]))
+    return make_arrowhead_lp(
+        [block, dict(block)], first, linking_eq={"b": np.array([5.0])},
+        linking_ineq={"iclow": np.array([1.0]), "clow": np.array([1.0]),
+                      "icupp": np.array([1.0]), "cupp": np.array([6.0])},
+        dtype=dtype, device=DEVICE)
+
+
+@lru_cache(maxsize=1)
+def sparse_lp():
+    """The 8 x 8192 sparse instance, f64 data on the host."""
+    return random_sparse_arrowhead_lp(0, **SPARSE)
+
+
+def paths() -> dict:
+    """The solve paths: name -> zero-argument builder of (LP, Options,
+    backend).  backend None: the facade takes the LP, scales it and picks
+    the backend; otherwise the IPMSolver takes the LP on the card as it
+    is."""
+    f32, f64 = torch.float32, torch.float64
+    one = dict(max_gondzio_correctors=1)
+
+    def flagship():
+        return (random_arrowhead_lp(0, dtype=f32, **FLAGSHIP),
+                Options(scaler=ScalerType.EQUILIBRIUM, factor_dtype="float32",
+                        **one), None)
+
+    def bigleaf():
+        # the bench's production configuration after equilibrium scaling
+        lp = make_scaler(ScalerType.EQUILIBRIUM).scale(
+            random_arrowhead_lp(3, dtype=f32, device=DEVICE, **BIGLEAF))
+        return (lp, Options(refinement_steps=0, **one),
+                partial(ArrowBackend, factor_dtype=f32,
+                        factored_inverse=True))
+
+    def sparse_f32():
+        # the JAX bench's sparse settings (bench.py:420-435)
+        return (sparse_lp(),
+                Options(scaler=ScalerType.EQUILIBRIUM, refinement_steps=2,
+                        reduced_accuracy=True, factor_dtype="float32", **one),
+                None)
+
+    def sparse_f64():
+        # the JAX package's acceptance run (tests/test_sparse.py:186-201)
+        return (sparse_lp().to(DEVICE), Options(),
+                partial(SparseArrowBackend, factor_dtype=f64, cg_iters=500))
+
+    def sweep():
+        return (two_scenario_lp(f32), Options(refinement_steps=2),
+                partial(ArrowBackend, factor_dtype=f32, sweep_kernel=True))
+
+    return {fn.__name__: fn
+            for fn in (flagship, bigleaf, sparse_f32, sparse_f64, sweep)}
+
+
+def facade_run(lp, opts: Options):
+    iface = PIPSIPMppTorchInterface(lp, opts, device=DEVICE)
     status = iface.run()
     return dict(status=status, iterations=iface.n_iterations,
                 objective=iface.getObjective(),
                 solve_s=iface.phase_times["solve"],
+                backend=iface.backend_class.__name__,
                 x=torch.from_numpy(iface.gatherPrimalSolution()))
 
 
-def solver_run(lp, factor_dtype, **be_kw):
-    solver = IPMSolver(partial(ArrowBackend, factor_dtype=factor_dtype,
-                               **be_kw),
-                       Options(refinement_steps=0, max_gondzio_correctors=1),
-                       device="cuda")
+def solver_run(lp, backend, opts: Options):
+    solver = IPMSolver(backend, opts, device=DEVICE)
     t0 = time.perf_counter()
     res = solver.solve(lp)
     torch.cuda.synchronize()
@@ -175,6 +431,52 @@ def solver_run(lp, factor_dtype, **be_kw):
     return dict(status=res.status, iterations=res.iterations,
                 objective=res.objective, solve_s=time.perf_counter() - t0,
                 x=torch.cat([x.first, x.blocks.reshape(-1)]).cpu())
+
+
+def path_run(lp, opts, backend):
+    """One solve of a path as `paths()` defines it."""
+    if backend is None:
+        return facade_run(lp, opts)
+    return solver_run(lp, backend, opts)
+
+
+def report(name, out, counts, ref_objective, rtol, n_vars, **extra):
+    """Print one path's line and check status, objective and solution."""
+    it = out["iterations"]
+    rel = abs(out["objective"] - ref_objective) / max(abs(ref_objective), 1.0)
+    row = dict(case=name, status=out["status"].name, iterations=it,
+               solve_s=out["solve_s"], iter_per_s=it / out["solve_s"],
+               launches=counts,
+               launches_per_iteration={k: v / max(it, 1)
+                                       for k, v in counts.items()},
+               cg_readbacks=out["cg_readbacks"],
+               cg_readbacks_per_iteration=out["cg_readbacks"] / max(it, 1),
+               cg_calls=out["cg_calls"], cg_capped=out["cg_capped"],
+               objective=out["objective"], reference_objective=ref_objective,
+               objective_rel_diff=rel, **extra)
+    print("main_path", json.dumps(row), flush=True)
+    require(out["status"] == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"{name}: status {out['status']}")
+    require(rel <= rtol, f"{name}: objective off by {rel:.3e} relative")
+    x = out["x"]
+    require(tuple(x.shape) == (n_vars,) and bool(torch.isfinite(x).all()),
+            f"{name}: solution of shape {tuple(x.shape)} not finite")
+
+
+def dense_path(name, f32_run, f64_run, n_vars, kernel):
+    """The f64 reference (no kernel launch allowed), then the f32 path."""
+    ref, ref_counts = drive(f"{name} f64 reference", f64_run, [])
+    require(not any(ref_counts.values()),
+            f"{name}: the f64 reference launched {ref_counts}")
+    require(ref["status"] == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"{name}: f64 reference status {ref['status']}")
+    out, counts = drive(name, f32_run, [kernel])
+    report(name, out, counts, ref["objective"], OBJ_RTOL, n_vars,
+           f64_iterations=ref["iterations"], f64_solve_s=ref["solve_s"])
+    require(counts[kernel] >= 2 * out["iterations"],
+            f"{name}: {counts[kernel]} {kernel} launches for "
+            f"{out['iterations']} iterations")
+    return counts, out
 
 
 def main():
@@ -199,33 +501,98 @@ def main():
     print("build", json.dumps(dict(seconds=time.perf_counter() - t0,
                                    library=lib_path.name)), flush=True)
 
-    # ---- 3. kernel check against the plain version ----
-    rows = check_ldl_kernel()
+    # ---- 3. kernels against their plain versions ----
+    slp = sparse_lp()
+    ldl_rows = check_ldl_kernel()
+    ell_rows = check_ell_kernel(slp)
+    sweep_rows = check_sweep_kernel()
 
-    # ---- 4. main path, flagship, through the facade ----
-    flag = random_arrowhead_lp(0, dtype=torch.float32, **FLAGSHIP)
-    launches4 = check_solve(
-        "flagship_facade", partial(facade_run, flag, "float32"),
-        partial(facade_run, flag.astype(torch.float64), "float64"),
-        flag.total_vars())
+    total = dict.fromkeys(COUNTED, 0)
 
-    # ---- 5. main path, big leaves, bench production configuration ----
-    big = make_scaler(ScalerType.EQUILIBRIUM).scale(
-        random_arrowhead_lp(3, dtype=torch.float32, device="cuda",
-                            **BIGLEAF))
-    launches5 = check_solve(
-        "bigleaf_ipmsolver",
-        partial(solver_run, big, torch.float32, factored_inverse=True),
-        partial(solver_run, big, torch.float64), big.total_vars())
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
 
-    leaf = rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "ldl_inverse_f32", "route": "cuda",
-        "source": "pips_ipmpp_tpu_torch/csrc/ldl_inverse.cu",
-        "replaces": "pips_ipmpp_tpu/linalg/pallas_ldl.py:224",
-        "launches": launches4 + launches5,
-        "max_abs_err": max(r["kernel_abs_err"] for r in rows),
-        "ms": leaf["ms"], "plain_ms": leaf["plain_ms"]}]}), flush=True)
+    P = paths()
+    f64_factors = partial(ArrowBackend, factor_dtype=torch.float64)
+
+    # ---- 4. dense main path: flagship through the facade ----
+    flag, opts, _ = P["flagship"]()
+    add(dense_path(
+        "flagship_facade", partial(facade_run, flag, opts),
+        partial(facade_run, flag.astype(torch.float64),
+                opts.replace(factor_dtype="float64")),
+        flag.total_vars(), "ldl_inverse_f32")[0])
+
+    # ---- 5. dense main path: big leaves, bench production configuration
+    big, opts, backend = P["bigleaf"]()
+    add(dense_path(
+        "bigleaf_ipmsolver", partial(solver_run, big, backend, opts),
+        partial(solver_run, big, f64_factors, opts),
+        big.total_vars(), "ldl_inverse_f32")[0])
+
+    # ---- 6. sparse path through the facade, f32 factors: 4.3 GB of dense
+    #         twin > the 256 MB default budget -> SparseArrowBackend ----
+    out, counts = drive("sparse_facade_f32",
+                        partial(path_run, *P["sparse_f32"]()),
+                        ["ell_spmm", "ldl_inverse_f32"])
+    require(out["backend"] == "SparseArrowBackend",
+            f"sparse facade routed to {out['backend']}")
+    report("sparse_facade_f32", out, counts, SPARSE_ORACLE, OBJ_RTOL,
+           slp.total_vars(), backend=out["backend"])
+    add(counts)
+
+    # ---- 7. sparse f64 check: the JAX package's acceptance run ----
+    out, counts = drive("sparse_ipmsolver_f64",
+                        partial(path_run, *P["sparse_f64"]()), ["ell_spmm"])
+    report("sparse_ipmsolver_f64", out, counts, SPARSE_ORACLE,
+           F64_ORACLE_RTOL, slp.total_vars())
+    add(counts)
+
+    # ---- 8. opt-in sweep path, the JAX package's sweep test in f32 ----
+    sweep_lp, opts, backend = P["sweep"]()
+    sweep_counts, sweep_out = dense_path(
+        "sweep_ipmsolver", partial(solver_run, sweep_lp, backend, opts),
+        partial(solver_run, sweep_lp, f64_factors, opts),
+        sweep_lp.total_vars(), "sweep_inverse")
+    add(sweep_counts)
+    require(abs(sweep_out["objective"] - SWEEP_OPTIMUM)
+            <= OBJ_RTOL * (1.0 + SWEEP_OPTIMUM),
+            f"sweep solve objective {sweep_out['objective']} is not the "
+            f"optimum {SWEEP_OPTIMUM}")
+
+    # ---- 9. the kernels line ----
+    leaf = ldl_rows[0]
+    ell = next(r for r in ell_rows if r["case"] == "fwd"
+               and r["dtype"] == "float32" and r["c"] > 1)
+    sw = sweep_rows[0]
+    kernels = [
+        dict(name="ldl_inverse_f32", route="cuda",
+             source="pips_ipmpp_tpu_torch/csrc/ldl_inverse.cu",
+             replaces="pips_ipmpp_tpu/linalg/pallas_ldl.py:224",
+             launches=total["ldl_inverse_f32"],
+             max_abs_err=max(r["kernel_abs_err"] for r in ldl_rows),
+             ms=leaf["ms"], plain_ms=leaf["plain_ms"],
+             bound_ms=leaf["bound_ms"], bound_by=leaf["bound_by"],
+             library_ms=leaf["library_ms"]),
+        dict(name="ell_spmm", route="cuda",
+             source="pips_ipmpp_tpu_torch/csrc/ell_spmm.cu",
+             replaces="pips_ipmpp_tpu/linalg/pallas_spmv.py:185",
+             launches=total["ell_spmm"],
+             max_abs_err=max(r["max_abs_err"] for r in ell_rows),
+             ms=ell["ms"], plain_ms=ell["plain_ms"],
+             bound_ms=ell["bound_ms"], bound_by=ell["bound_by"],
+             library_ms=ell["library_ms"]),
+        dict(name="sweep_inverse", route="cuda",
+             source="pips_ipmpp_tpu_torch/csrc/sweep_inverse.cu",
+             replaces="pips_ipmpp_tpu/linalg/pallas_sweep.py:158",
+             launches=total["sweep_inverse"],
+             max_abs_err=max(r["kernel_abs_err"] for r in sweep_rows),
+             ms=sw["ms"], plain_ms=sw["plain_ms"],
+             bound_ms=sw["bound_ms"], bound_by=sw["bound_by"],
+             library_ms=sw["library_ms"]),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-The sources under `csrc/` have plain C interfaces; `nvcc` compiles them for
-Hopper (`sm_90a`) into one shared library named by the sources' content
-hash, `build/libpips_kernels_<hash>.so` beside this file.  A build or load
-failure raises; nothing falls back.
+The sources under `csrc/` have plain C interfaces.  One `nvcc` per source,
+all started together, compiles them for Hopper (`sm_90a`); one more links
+the objects into a shared library named by the sources' content hash,
+`build/libpips_kernels_<hash>.so` beside this file, with the compilers'
+register and shared-memory report (`-Xptxas -v`) beside it as `.log`.  A
+build or load failure raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import subprocess
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
-_SOURCES = (_HERE / "csrc" / "ldl_inverse.cu",)
+_SOURCES = tuple(_HERE / "csrc" / name for name in
+                 ("ldl_inverse.cu", "ell_spmm.cu", "sweep_inverse.cu"))
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = _HERE / "build"
 
 
@@ -48,12 +51,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _SOURCES]
+    procs = []
+    for src, obj in zip(_SOURCES, objs):
+        cmd = [nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)))
+    # wait for every compile before judging any, so none is left running
+    log = [(cmd, proc.communicate()[0], proc.returncode)
+           for cmd, proc in procs]
+    for cmd, text, rc in log:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                               f"{text}")
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
+    out.with_suffix(".log").write_text(
+        "\n".join(f"$ {' '.join(cmd)}\n{text}" for cmd, text, _ in log))
     os.replace(tmp, out)
     return out
 
@@ -63,8 +86,16 @@ def load() -> ctypes.CDLL:
     """Build if needed, then load the library and declare its functions."""
     lib = ctypes.CDLL(str(build()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ldl_inverse_f32.argtypes = [vp, vp, vp, vp, ci, ci, vp]
-    lib.ldl_inverse_f32.restype = ci
-    lib.ldl_inverse_max_dim.argtypes = []
-    lib.ldl_inverse_max_dim.restype = ci
+    signatures = {
+        "ldl_inverse_f32": [vp, vp, vp, vp, ci, ci, vp],
+        "ldl_inverse_max_dim": [],
+        "ell_spmm_f32": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "ell_spmm_f64": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "sweep_inverse_f32": [vp, vp, vp, ci, ci, vp],
+        "sweep_inverse_max_dim": [],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ci
     return lib

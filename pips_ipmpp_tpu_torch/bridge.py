@@ -1,8 +1,9 @@
 """Data carried in from numpy: LPs and iterates given as plain arrays.
 
 The JAX package's containers turn into numpy with
-`{f.name: np.asarray(getattr(obj, f.name))}` on the caller's side, so this
-package never touches JAX; both packages then compute from the same data.
+`{f.name: np.asarray(getattr(obj, f.name))}` on the caller's side (an ELL
+field as `{"val": ..., "col": ...}`), so this package never touches JAX;
+both packages then compute from the same data.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
+from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
 from pips_ipmpp_tpu_torch.ipm.formulation import Iterate
 
@@ -29,6 +31,26 @@ def lp_from_numpy(fields: dict[str, np.ndarray], *, device,
         raise ValueError(f"missing ArrowheadLP fields: {sorted(missing)}")
     return ArrowheadLP(**{k: _tensor(fields[k], device, dtype)
                           for k in names})
+
+
+def sparse_lp_from_numpy(fields: dict, *, device,
+                         dtype) -> SparseArrowheadLP:
+    """SparseArrowheadLP from a dict holding one array per dense field and
+    `{"val": ..., "col": ...}` per ELL field (B, Bt, D, Dt)."""
+    names = [f.name for f in dataclasses.fields(SparseArrowheadLP)]
+    missing = set(names) - set(fields)
+    if missing:
+        raise ValueError(f"missing SparseArrowheadLP fields: "
+                         f"{sorted(missing)}")
+    kw = {}
+    for k in names:
+        v = fields[k]
+        if isinstance(v, dict):
+            kw[k] = Ell(_tensor(v["val"], device, dtype),
+                        _tensor(v["col"], device, torch.int32))
+        else:
+            kw[k] = _tensor(v, device, dtype)
+    return SparseArrowheadLP(**kw)
 
 
 def space_from_numpy(parts: dict[str, np.ndarray], *, device, dtype):

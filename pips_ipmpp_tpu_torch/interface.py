@@ -3,8 +3,12 @@
 construct from problem data + options; run() -> TerminationStatus;
 getObjective(); gatherPrimalSolution().
 
-This package's facade takes an ArrowheadLP, applies the equilibrium scaler
-when asked, and solves with the Schur-complement ArrowBackend.
+This package's facade takes an ArrowheadLP or a SparseArrowheadLP,
+applies the equilibrium scaler when asked, and solves with the
+Schur-complement ArrowBackend, or, for a sparse LP whose dense twin does
+not fit `Options.sparse_densify_max_mb`, with the CG-leaf
+SparseArrowBackend.  It runs on the CUDA card unless the caller passes
+`device="cpu"`.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import numpy as np
 import torch
 
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
+from pips_ipmpp_tpu_torch.core.sparse import (SparseArrowheadLP, dense_bytes,
+                                              dense_from_sparse)
 from pips_ipmpp_tpu_torch.core.options import (Options, PresolverType,
                                                ScalerType)
 from pips_ipmpp_tpu_torch.core.status import TerminationStatus
@@ -53,10 +59,12 @@ class PIPSIPMppTorchInterface:
     """Facade wiring scaler -> solver (ctor order mirrors
     PIPSIPMppInterface.cpp:20-130)."""
 
-    def __init__(self, lp, options: Optional[Options] = None, *, device):
-        if not isinstance(lp, ArrowheadLP):
+    def __init__(self, lp, options: Optional[Options] = None, *,
+                 device="cuda"):
+        if not isinstance(lp, (ArrowheadLP, SparseArrowheadLP)):
             raise TypeError(f"unsupported problem type {type(lp)}: this "
-                            f"package solves ArrowheadLP")
+                            f"package solves ArrowheadLP and "
+                            f"SparseArrowheadLP")
         self.options = options or Options()
         _check_supported(self.options)
         self.device = torch.device(device)
@@ -68,8 +76,19 @@ class PIPSIPMppTorchInterface:
         from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
         from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
 
+        be_cls = ArrowBackend
+        if isinstance(lp, SparseArrowheadLP):
+            budget = self.options.sparse_densify_max_mb * 1024 * 1024
+            if budget > 0 and dense_bytes(lp) <= budget:
+                # the dense twin fits: batched dense factorization
+                self.lp = dense_from_sparse(self.lp)
+            else:
+                from pips_ipmpp_tpu_torch.linalg.sparse_backend import \
+                    SparseArrowBackend
+                be_cls = SparseArrowBackend
+        self.backend_class = be_cls
         fd = resolve_factor_dtype(self.options, self.device)
-        self._solver = IPMSolver(partial(ArrowBackend, factor_dtype=fd),
+        self._solver = IPMSolver(partial(be_cls, factor_dtype=fd),
                                  self.options, device=self.device)
 
     def _sync(self):

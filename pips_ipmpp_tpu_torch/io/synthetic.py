@@ -1,8 +1,9 @@
-"""Synthetic arrowhead LP generator (benchmarks, smoke runs, tests).
+"""Synthetic arrowhead LP generators (benchmarks, smoke runs, tests).
 
-Counterpart of `pips_ipmpp_tpu/io/synthetic.py::random_arrowhead_lp`: the
-same `np.random.default_rng(seed)` draws in the same order, so one seed
-gives bit-identical LP data in both packages.
+Counterparts of `random_arrowhead_lp` and `random_sparse_arrowhead_lp` in
+`pips_ipmpp_tpu/io/synthetic.py`: the same `np.random.default_rng(seed)`
+draws in the same order, so one seed gives bit-identical LP data in both
+packages.
 """
 import numpy as np
 import torch
@@ -77,3 +78,100 @@ def random_arrowhead_lp(seed, N=4, n=6, mE=3, mI=4, n0=3, m0E=2, m0I=2,
         linking_ineq={"iclow": iclowl, "clow": clowl,
                       "icupp": icuppl, "cupp": cuppl},
         dtype=dtype, device=device)
+
+
+def random_sparse_arrowhead_lp(seed, N=4, n=4096, mE=2048, mI=2048,
+                               nnz_per_row=8, n0=32, m0E=8, m0I=8,
+                               mEl=8, mIl=8, dtype=torch.float64,
+                               device="cpu"):
+    """Feasible-by-construction sparse arrowhead LP, built directly in ELL
+    form: the dense [N, m, n] blocks are never materialized, so this
+    scales to the reference's block sizes (10^4+ rows at ~10 nnz/row).
+
+    B gets a unit-ish "diagonal" (col r % n) for full row rank plus random
+    off-diagonal entries; D is fully random.  Same draws, in the same
+    order, as the JAX package's `random_sparse_arrowhead_lp`."""
+    from pips_ipmpp_tpu_torch.core.sparse import (Ell, SparseArrowheadLP,
+                                                  ell_transpose)
+    rng = np.random.default_rng(seed)
+    K = nnz_per_row
+
+    def rand_ell(m, diag: bool):
+        # distinct column ids per row (slot k draws from its own stripe
+        # of [0, n)): ell_sq_diag and products assume no duplicate slots
+        stripe = n // K
+        base = (np.arange(K) * stripe)[None, None, :]
+        col = (base + rng.integers(0, stripe, size=(N, m, K))
+               ).astype(np.int32)
+        val = rng.normal(size=(N, m, K)) * (0.4 / np.sqrt(K))
+        if diag:
+            # put the strong diagonal id into the slot whose stripe
+            # contains it (one slot per stripe keeps ids unique)
+            d = (np.arange(m) % n).astype(np.int32)
+            owner = np.minimum(d // stripe, K - 1)
+            ridx = np.arange(m)
+            col[:, ridx, owner] = d[None, :]
+            val[:, ridx, owner] = 1.0 + 0.1 * rng.random((N, m))
+        return Ell(torch.from_numpy(val), torch.from_numpy(col))
+
+    B = rand_ell(mE, diag=True)
+    D = rand_ell(mI, diag=False)
+    Bt = ell_transpose(B, n)
+    Dt = ell_transpose(D, n)
+
+    def ell_mv_np(e, x):  # host-side matvec for the rhs construction
+        v = e.val.numpy()
+        c = e.col.numpy()
+        return np.einsum("imk,imk->im",
+                         v, np.take_along_axis(x, c.reshape(N, -1),
+                                               axis=1).reshape(v.shape))
+
+    x0 = rng.normal(size=n0) * 0.5
+    xi = rng.normal(size=(N, n)) * 0.5
+    A = rng.normal(size=(N, mE, n0)) * 0.3
+    C = rng.normal(size=(N, mI, n0)) * 0.3
+    F = rng.normal(size=(N, mEl, n)) * (0.2 / np.sqrt(n))
+    G = rng.normal(size=(N, mIl, n)) * (0.2 / np.sqrt(n))
+    A0 = rng.normal(size=(m0E, n0)) + np.eye(m0E, n0)
+    C0 = rng.normal(size=(m0I, n0))
+    F0 = rng.normal(size=(mEl, n0)) * 0.2
+    G0 = rng.normal(size=(mIl, n0)) * 0.2
+
+    bN = np.einsum("imk,k->im", A, x0) + ell_mv_np(B, xi)
+    CxN = np.einsum("imk,k->im", C, x0) + ell_mv_np(D, xi)
+    b0 = A0 @ x0
+    Cx0 = C0 @ x0
+    bl = F0 @ x0 + np.einsum("iln,in->l", F, xi)
+    Gx = G0 @ x0 + np.einsum("iln,in->l", G, xi)
+
+    def box(v, width=1.0):
+        lo = v - width * (0.5 + rng.random(np.shape(v)))
+        up = v + width * (0.5 + rng.random(np.shape(v)))
+        return lo, up
+
+    cl0, cu0 = box(Cx0)
+    clN, cuN = box(CxN)
+    cll, cul = box(Gx)
+    xl0, xu0 = box(x0)
+    xlN, xuN = box(xi)
+
+    def arr(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                               device=device)
+
+    def ones(v):
+        return torch.ones(np.shape(v), dtype=dtype, device=device)
+
+    def cast(e):
+        return Ell(arr(e.val), e.col.to(device))
+
+    return SparseArrowheadLP(
+        c0=arr(rng.normal(size=n0)), A0=arr(A0), b0=arr(b0), C0=arr(C0),
+        iclow0=ones(cl0), clow0=arr(cl0), icupp0=ones(cu0), cupp0=arr(cu0),
+        ixlow0=ones(xl0), xlow0=arr(xl0), ixupp0=ones(xu0), xupp0=arr(xu0),
+        cN=arr(rng.normal(size=(N, n))), A=arr(A), B=cast(B), Bt=cast(Bt),
+        bN=arr(bN), C=arr(C), D=cast(D), Dt=cast(Dt),
+        iclowN=ones(clN), clowN=arr(clN), icuppN=ones(cuN), cuppN=arr(cuN),
+        ixlowN=ones(xlN), xlowN=arr(xlN), ixuppN=ones(xuN), xuppN=arr(xuN),
+        F0=arr(F0), F=arr(F), bl=arr(bl), G0=arr(G0), G=arr(G),
+        iclowl=ones(cll), clowl=arr(cll), icuppl=ones(cul), cuppl=arr(cul))

@@ -105,11 +105,12 @@ class IPMSolver:
     """Drives the IPM to termination over a backend.
 
     `be_ctor(lp) -> backend`; `device` is where the LP, the iterate and the
-    factors live (required: nothing picks a device on the caller's
-    behalf)."""
+    factors live: the CUDA card unless the caller passes `device="cpu"`.
+    Nothing picks the CPU on its own: without a CUDA device the default
+    raises when the first tensor moves to it."""
 
     def __init__(self, be_ctor: Callable, opts: Optional[Options] = None,
-                 *, device):
+                 *, device="cuda"):
         self.be_ctor = be_ctor
         self.opts = opts or Options()
         self.device = torch.device(device)

@@ -10,8 +10,9 @@ for the derivation).  Per IPM iteration, for every block i (all N at once):
 
   condensation: Neq_i = M_i E_i^{-1} M_i' + F_i (SPD), factored in one
   batch — by the LDL^T kernel (linalg/ldl.py) with f32 factors, by
-  Cholesky with f64 factors; border solves U_i = K_i^{-1} R_i and the Schur
-  contribution -R_i' K_i^{-1} R_i are batched matmuls.
+  Cholesky with f64 factors, or inverted by the sweep kernel
+  (linalg/sweep.py) when asked; border solves U_i = K_i^{-1} R_i and the
+  Schur contribution -R_i' K_i^{-1} R_i are batched matmuls.
 
 The root system over s0full = [x0; y0; z0; yl; zl]
 
@@ -37,6 +38,7 @@ from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
 from pips_ipmpp_tpu_torch.ipm.formulation import Bounds, ReducedRhs
 from pips_ipmpp_tpu_torch.linalg.ldl import (inverse_from_factors,
                                              ldl_inverse_factors)
+from pips_ipmpp_tpu_torch.linalg.sweep import sweep_inverse
 
 
 @dataclass
@@ -98,7 +100,10 @@ class ArrowBackend:
     With f32 factors the leaves and the root go through the LDL^T kernel
     (`ldl_kernel`), keeping either explicit inverses or, with
     `factored_inverse`, the (X, 1/d) factors of the leaves; with f64
-    factors they go through Cholesky."""
+    factors they go through Cholesky.  `sweep_kernel=True` (with the LDL
+    kernel's explicit inverses only) inverts leaves and root with the sweep
+    kernel instead: opt-in, since the sweep is unstable on IPM-conditioned
+    systems."""
 
     def __init__(self, lp: ArrowheadLP, factor_dtype=torch.float64,
                  explicit_inverse: Optional[bool] = None,
@@ -116,8 +121,7 @@ class ArrowBackend:
         for name, val in (("blockwise_sc", blockwise_sc),
                           ("dist_root", dist_root),
                           ("iterative_root", iterative_root),
-                          ("band_root_plan", band_root_plan),
-                          ("sweep_kernel", sweep_kernel)):
+                          ("band_root_plan", band_root_plan)):
             if val:
                 raise NotImplementedError(f"ArrowBackend({name}=...) is not "
                                           f"ported yet")
@@ -130,6 +134,10 @@ class ArrowBackend:
             ldl_kernel = factor_dtype == torch.float32 and explicit_inverse
         self.ldl_kernel = ldl_kernel
         self.factored_inverse = factored_inverse and ldl_kernel
+        # the sweep (linalg/sweep.py) replaces the LDL kernel's explicit
+        # inverses only; off unless asked
+        self.sweep_kernel = bool(sweep_kernel) and ldl_kernel \
+            and not factored_inverse
         self.root_escalation = root_escalation
         self.root_escalation_base = root_escalation_base
         self.root_escalation_growth = root_escalation_growth
@@ -149,8 +157,13 @@ class ArrowBackend:
         rep = (lp.ixlow0.sum() + lp.ixupp0.sum() + lp.iclow0.sum()
                + lp.icupp0.sum() + lp.iclowl.sum() + lp.icuppl.sum())
         self.num_bound_pairs = torch.clamp(local + rep, min=1.0)
-        self.M = torch.cat([lp.B, lp.D], dim=1)                # [N, a, n]
-        self.Mf = self.M.to(factor_dtype)
+        self._init_leaves()
+
+    def _init_leaves(self):
+        """Leaf operators: the dense merged M = [B; D] and its factor-dtype
+        copy (the sparse backend keeps ELL operators instead)."""
+        self.M = torch.cat([self.lp.B, self.lp.D], dim=1)      # [N, a, n]
+        self.Mf = self.M.to(self.factor_dtype)
 
     # ---- matvecs (recursive tree mult of the reference, collapsed to
     #      batched einsum) ----
@@ -201,6 +214,10 @@ class ArrowBackend:
         fd = self.factor_dtype
         Neq = (torch.einsum("iak,ibk->iab", MEi.to(fd), self.Mf)
                + torch.diag_embed(Fd.to(fd)))
+        if self.sweep_kernel:
+            Ninv, df = sweep_inverse(Neq)
+            leaf_ok = torch.isfinite(Ninv).all() & (df > 0.0).all()
+            return None, Ninv, leaf_ok
         if self.ldl_kernel:
             Xf, df = ldl_inverse_factors(Neq)
             if self.factored_inverse:
@@ -326,16 +343,22 @@ class ArrowBackend:
                              -torch.ones(nD, dtype=fd, device=dev)])
 
             def _root_factor(extra):
-                Xs, ds = ldl_inverse_factors(
-                    (Sfull + torch.diag(sgn * extra))[None])
-                Sinv_ = inverse_from_factors(Xs, ds)[0]
+                S = (Sfull + torch.diag(sgn * extra))[None]
+                if self.sweep_kernel:
+                    Sinv1, ds = sweep_inverse(S)
+                    Sinv_ = Sinv1[0]
+                else:
+                    Xs, ds = ldl_inverse_factors(S)
+                    Sinv_ = inverse_from_factors(Xs, ds)[0]
                 ok_ = (torch.isfinite(Sinv_).all() & (ds[:, :n0] > 0.0).all()
                        & (ds[:, n0:] < 0.0).all())
                 return Sinv_, ok_
 
             extra = torch.zeros((), dtype=fd, device=dev)
             Sinv, root_ok = _root_factor(extra)
-            if self.root_escalation:
+            # the sweep's pivots are no reliable health signal: its
+            # failures stay on the outer regularization ladder
+            if self.root_escalation and not self.sweep_kernel:
                 # Wrong-inertia failures in f32 sit in this small root
                 # system: escalate only the root shift in place instead of
                 # failing the whole factorization (an outer retry would

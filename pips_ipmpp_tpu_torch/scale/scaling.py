@@ -1,7 +1,8 @@
-r"""Problem scaling: equilibrium (inf-norm) scaling of an ArrowheadLP.
+r"""Problem scaling: equilibrium (inf-norm) scaling of an arrowhead LP.
 
 Counterpart of the equilibrium part of `pips_ipmpp_tpu/scale/scaling.py`
-(reference Core/Preprocessing/Scaler.cpp, EquilibriumScaler).  Scaling runs
+(reference Core/Preprocessing/Scaler.cpp, EquilibriumScaler), for the
+batched-dense ArrowheadLP and the ELL SparseArrowheadLP.  Scaling runs
 once at setup, off the IPM hot path, on the batched arrowhead tensors.
 
 Transform (col scale s > 0, eq-row scale rE > 0, ineq-row scale rC > 0):
@@ -21,6 +22,7 @@ import torch
 
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
 from pips_ipmpp_tpu_torch.core.options import ScalerType
+from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec, tmap
 
 _INF = float("inf")
@@ -210,6 +212,166 @@ class _ArrowView:
         return ArrowheadLP(**kw)
 
 
+def _gather_cols(v, ell: Ell):
+    """v[i, col[i, r, k]] per ELL entry: v [N, n] -> [N, m, K]."""
+    N, m, K = ell.val.shape
+    return v.gather(1, ell.col.reshape(N, m * K).long()).reshape(N, m, K)
+
+
+class _SparseEllView(_ArrowView):
+    """Stats/apply adapter for SparseArrowheadLP: the structure of
+    _ArrowView with the diagonal blocks B/D in ELL form.  Their row and
+    column statistics and their scaling act on the ELL values directly:
+    row factors index by the entry's row, column factors gather by the
+    entry's column id, and the stored transposes Bt/Dt give the column
+    statistics (their rows are B/D's columns)."""
+
+    @staticmethod
+    def _bd_scaled_abs(ell, r_rows, s_blocks):
+        """|val| * r[row] * s[col] per ELL entry; padded entries stay 0."""
+        return ell.val.abs() * r_rows[:, :, None] * _gather_cols(s_blocks,
+                                                                  ell)
+
+    def row_stats(self, s, rE, rC, op):
+        red = _red(op)
+
+        def rows(M0, border, ell, Ml0, Mlb, r0, rb, rl):
+            S0 = M0.abs() * r0[:, None] * s.first[None, :]
+            first = _rstat(S0, op)
+            Sb1 = border.abs() * rb[:, :, None] * s.first[None, None, :]
+            SbE = self._bd_scaled_abs(ell, rb, s.blocks)     # [N, m, K]
+            Sl0 = Ml0.abs() * rl[:, None] * s.first[None, :]
+            Slb = Mlb.abs() * rl[None, :, None] * s.blocks[:, None, :]
+            if op == "max":
+                blocks = red(_rstat(Sb1, "max"), SbE.amax(-1))
+                stat_l0 = _rstat(Sl0, "max")
+                stat_lb = _rstat(Slb, "max")
+            else:
+                rowmax = torch.maximum(_rstat(Sb1, "max"), SbE.amax(-1))
+                fb = _MIN_REL_FLOOR * rowmax
+                ell_min = torch.where(SbE > fb[:, :, None], SbE,
+                                      _INF).amin(-1)
+                blocks = red(_rstat(Sb1, "min", fb), ell_min)
+                l0max = _rstat(Sl0, "max")
+                lbmax = _rstat(Slb, "max")
+                gl = (torch.maximum(l0max, lbmax.amax(0))
+                      if lbmax.shape[0] else l0max)
+                fl = _MIN_REL_FLOOR * gl
+                stat_l0 = _rstat(Sl0, "min", fl)
+                stat_lb = _rstat(Slb, "min", fl[None, :])
+            if stat_lb.shape[0]:
+                agg = _agg0(stat_lb, op)
+            else:
+                agg = torch.full_like(stat_l0, 0.0 if op == "max" else _INF)
+            return RVec(first, blocks, red(stat_l0, agg))
+
+        lp = self.lp
+        sE = rows(lp.A0, lp.A, lp.B, lp.F0, lp.F, rE.first, rE.blocks,
+                  rE.link)
+        sC = rows(lp.C0, lp.C, lp.D, lp.G0, lp.G, rC.first, rC.blocks,
+                  rC.link)
+        return sE, sC
+
+    def col_stats(self, s, rE, rC, op):
+        lp = self.lp
+        # first-stage columns: dense parts only (B/D never touch them)
+        first_parts = [
+            (lp.A0.abs() * rE.first[:, None] * s.first[None, :], False),
+            (lp.C0.abs() * rC.first[:, None] * s.first[None, :], False),
+            (lp.F0.abs() * rE.link[:, None] * s.first[None, :], False),
+            (lp.G0.abs() * rC.link[:, None] * s.first[None, :], False),
+            (lp.A.abs() * rE.blocks[:, :, None] * s.first[None, None, :],
+             True),
+            (lp.C.abs() * rC.blocks[:, :, None] * s.first[None, None, :],
+             True),
+        ]
+
+        def first_stat(statop, floor=None):
+            red = _red(statop)
+            out = None
+            for S, batched in first_parts:
+                fl = None if floor is None else (
+                    floor[None, :] if batched else floor)
+                st = _cstat(S, statop, fl)
+                if batched and st.shape[0]:
+                    st = _agg0(st, statop)
+                elif batched:
+                    st = torch.full(st.shape[1:],
+                                    0.0 if statop == "max" else _INF,
+                                    dtype=st.dtype, device=st.device)
+                out = st if out is None else red(out, st)
+            return out
+
+        # block columns: the transposed ELL (Bt/Dt rows are columns), whose
+        # row factor is the column's s and gathered factor the row's r
+        def block_stat(statop, floor=None):
+            SbE = self._bd_scaled_abs(lp.Bt, s.blocks, rE.blocks)
+            SdE = self._bd_scaled_abs(lp.Dt, s.blocks, rC.blocks)
+            SF = lp.F.abs() * rE.link[None, :, None] * s.blocks[:, None, :]
+            SG = lp.G.abs() * rC.link[None, :, None] * s.blocks[:, None, :]
+            if statop == "max":
+                return torch.maximum(
+                    torch.maximum(SbE.amax(-1), SdE.amax(-1)),
+                    torch.maximum(_cstat(SF, "max"), _cstat(SG, "max")))
+            fl = floor[:, :, None]
+            mn = torch.minimum(
+                torch.where(SbE > fl, SbE, _INF).amin(-1),
+                torch.where(SdE > fl, SdE, _INF).amin(-1))
+            return torch.minimum(
+                mn, torch.minimum(_cstat(SF, "min", floor),
+                                  _cstat(SG, "min", floor)))
+
+        if op == "max":
+            return XVec(first_stat("max"), block_stat("max"))
+        ffl = _MIN_REL_FLOOR * first_stat("max")
+        bfl = _MIN_REL_FLOOR * block_stat("max")
+        return XVec(first_stat("min", ffl), block_stat("min", bfl))
+
+    def apply(self, s, rE, rC) -> SparseArrowheadLP:
+        lp = self.lp
+
+        def scaled(ell, r_rows, s_cols):
+            return Ell(ell.val * r_rows[:, :, None] * _gather_cols(s_cols,
+                                                                    ell),
+                       ell.col)
+
+        kw = dict(
+            c0=lp.c0 * s.first, cN=lp.cN * s.blocks,
+            A0=lp.A0 * rE.first[:, None] * s.first[None, :],
+            b0=lp.b0 * rE.first,
+            C0=lp.C0 * rC.first[:, None] * s.first[None, :],
+            A=lp.A * rE.blocks[:, :, None] * s.first[None, None, :],
+            B=scaled(lp.B, rE.blocks, s.blocks),
+            Bt=scaled(lp.Bt, s.blocks, rE.blocks),
+            bN=lp.bN * rE.blocks,
+            C=lp.C * rC.blocks[:, :, None] * s.first[None, None, :],
+            D=scaled(lp.D, rC.blocks, s.blocks),
+            Dt=scaled(lp.Dt, s.blocks, rC.blocks),
+            F0=lp.F0 * rE.link[:, None] * s.first[None, :],
+            F=lp.F * rE.link[None, :, None] * s.blocks[:, None, :],
+            bl=lp.bl * rE.link,
+            G0=lp.G0 * rC.link[:, None] * s.first[None, :],
+            G=lp.G * rC.link[None, :, None] * s.blocks[:, None, :],
+            clow0=lp.clow0 * rC.first, cupp0=lp.cupp0 * rC.first,
+            clowN=lp.clowN * rC.blocks, cuppN=lp.cuppN * rC.blocks,
+            clowl=lp.clowl * rC.link, cuppl=lp.cuppl * rC.link,
+            xlow0=lp.xlow0 / s.first, xupp0=lp.xupp0 / s.first,
+            xlowN=lp.xlowN / s.blocks, xuppN=lp.xuppN / s.blocks,
+        )
+        for f in dataclasses.fields(lp):
+            kw.setdefault(f.name, getattr(lp, f.name))
+        return SparseArrowheadLP(**kw)
+
+
+def _view(lp):
+    if isinstance(lp, ArrowheadLP):
+        return _ArrowView(lp)
+    if isinstance(lp, SparseArrowheadLP):
+        return _SparseEllView(lp)
+    raise TypeError(f"scaling supports ArrowheadLP and SparseArrowheadLP, "
+                    f"got {type(lp).__name__}")
+
+
 # ======================================================================
 # Scalers
 # ======================================================================
@@ -220,11 +382,8 @@ class _ScalerBase:
     def __init__(self):
         self.s = self.rE = self.rC = None
 
-    def scale(self, lp: ArrowheadLP) -> ArrowheadLP:
-        if not isinstance(lp, ArrowheadLP):
-            raise TypeError(f"scaling supports ArrowheadLP only, got "
-                            f"{type(lp).__name__}")
-        view = _ArrowView(lp)
+    def scale(self, lp):
+        view = _view(lp)
         s, rE, rC = self._compute(view)
         self.s = tmap(lambda v: _safe(_pow2_round(_safe(v))), s)
         self.rE = tmap(lambda v: _safe(_pow2_round(_safe(v))), rE)

@@ -1,5 +1,6 @@
-"""The PyTorch package stands alone: importing it pulls in neither JAX nor
-the JAX package."""
+"""The PyTorch package stands alone: importing every one of its modules,
+`chip_smoke.py` and `profile_port.py` pulls in neither JAX nor the JAX
+package."""
 import os
 import subprocess
 import sys
@@ -8,12 +9,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys\n"
-            "import pips_ipmpp_tpu_torch\n"
-            "import pips_ipmpp_tpu_torch.bridge\n"
-            "import pips_ipmpp_tpu_torch.interface\n"
-            "import pips_ipmpp_tpu_torch.linalg.arrow_backend\n"
-            "import pips_ipmpp_tpu_torch.io.synthetic\n"
+    code = ("import importlib, pkgutil, sys\n"
+            "import pips_ipmpp_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names + ['chip_smoke', 'profile_port']:\n"
+            "    importlib.import_module(name)\n"
+            "needed = {'pips_ipmpp_tpu_torch.core.sparse',\n"
+            "          'pips_ipmpp_tpu_torch.core.csr',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.spmv',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.sweep',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.sparse_backend'}\n"
+            "assert needed <= set(names), needed - set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pips_ipmpp_tpu' or "
             "m.startswith('pips_ipmpp_tpu.')]\n"

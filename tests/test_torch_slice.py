@@ -123,8 +123,10 @@ def test_facade_rejects_unported_input():
         PIPSIPMppTorchInterface(
             lp, Options(scaler=ScalerType.GEOMETRIC_MEAN),
             device="cpu").run()
-    with pytest.raises(TypeError):
-        PIPSIPMppTorchInterface(lp)          # device is required
+    if not torch.cuda.is_available():
+        # the default device is the card: nothing falls back to the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            PIPSIPMppTorchInterface(lp)
     iface = PIPSIPMppTorchInterface(lp, device="cpu")
     with pytest.raises(RuntimeError):
         iface.getObjective()                 # before run()

@@ -15,6 +15,17 @@ def jax_fields(obj) -> dict:
             for f in dataclasses.fields(obj)}
 
 
+def jax_sparse_fields(obj) -> dict:
+    """jax_fields of a JAX SparseArrowheadLP: each ELL field as
+    {"val", "col"} (the form `bridge.sparse_lp_from_numpy` takes)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = ({"val": np.asarray(v.val), "col": np.asarray(v.col)}
+                       if hasattr(v, "col") else np.asarray(v))
+    return out
+
+
 def jax_space(vec) -> dict:
     """{first, blocks[, link]} numpy parts of a JAX XVec/RVec."""
     return {f.name: np.asarray(getattr(vec, f.name))
