@@ -57,10 +57,10 @@ BIGLEAF = dict(N=64, n=1024, mE=512, mI=512, n0=64, m0E=32, m0I=32, mEl=32,
                mIl=32)
 # (batch, edge, positive pivots): the leaves of the flagship, 512-block and
 # big-leaf shapes (SPD), the flagship and linking-dominated roots
-# ([[SPD, B'], [B, -SPD]] with n0 = 64 first-stage columns) and the sparse
-# path's root (n0 = 16 of 32)
+# ([[SPD, B'], [B, -SPD]] with n0 = 64 first-stage columns), the sparse
+# path's root (n0 = 16 of 32), and an SPD edge past any shared-memory cap
 LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
-              (1, 192, 64), (1, 480, 64), (1, 32, 16)]
+              (1, 192, 64), (1, 480, 64), (1, 32, 16), (2, 2048, 2048)]
 # the sweep kernel at the flagship leaf (SPD) and root (quasidefinite), and
 # at the sweep solve's leaves (a = 2) and root (a = 3, n0 = 1), unpadded so
 # that the wrapper's identity padding to 16 runs too
@@ -190,6 +190,7 @@ def rel_err(inv, ref_inv):
 
 
 def check_ldl_kernel():
+    lib = _build.load()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
     for B, a, n_pos in LDL_SHAPES:
@@ -225,7 +226,9 @@ def check_ldl_kernel():
         row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
                    plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
                    pivot_signs_equal=signs, inertia_ok=ok, **times,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   nb=lib.ldl_inverse_nb(a),
+                   cuda_launches_per_call=lib.ldl_inverse_launches(a))
         print("ldl_check", json.dumps(row), flush=True)
         require(err_k <= 4.0 * err_p + 1e-6,
                 f"LDL kernel error {err_k:.3e} > 4 x plain {err_p:.3e} + 1e-6 "

@@ -88,7 +88,8 @@ def load() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     signatures = {
         "ldl_inverse_f32": [vp, vp, vp, vp, ci, ci, vp],
-        "ldl_inverse_max_dim": [],
+        "ldl_inverse_nb": [ci],
+        "ldl_inverse_launches": [ci],
         "ell_spmm_f32": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "ell_spmm_f64": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
         "sweep_inverse_f32": [vp, vp, vp, ci, ci, vp],

@@ -1,238 +1,507 @@
 // Batched unpivoted LDL^T + unit-lower inverse for Hopper (sm_90a).
 //
-// Replaces pips_ipmpp_tpu/linalg/pallas_ldl.py::_ldl_kernel (the Pallas TPU
-// kernel behind ldl_inverse_factors).  For each symmetric quasidefinite
-// A[b] (a x a, row major) it writes X[b] = L^{-1} (unit lower, zero above the
-// diagonal) and the pivots d[b], so that A^{-1} = X^T diag(1/d) X.  No sqrt
-// and no pivot check: SPD leaves and the indefinite root share the kernel,
-// and inverse_ok() checks the pivots afterwards.
+// Replaces pips_ipmpp_tpu/linalg/pallas_ldl.py:224 (_ldl_call, the Pallas
+// TPU kernel behind ldl_inverse_factors).  For each symmetric quasidefinite
+// A[b] (a x a, row major) it writes X[b] = L^{-1} (unit lower, zero above
+// the diagonal) and the pivots d[b], so that A^{-1} = X^T diag(1/d) X.  No
+// sqrt and no pivot check: SPD leaves and the indefinite root share the
+// kernel, and inverse_ok() checks the pivots afterwards.
 //
-// Design.  One CTA of 256 threads per matrix (grid = B).  The working
-// matrix W (a copy of A) and X stay in global memory: an f32 256x256 matrix
-// is 256 KiB, more than the 227 KB of shared memory a CTA can hold, and the
-// flagship batch [64,256,256] (16 MB) sits in the 50 MB L2.  The
-// elimination is right-looking and blocked by panels of 16 columns:
-//   1. the panel's columns (rows k0..a-1) are copied into shared memory;
-//   2. the panel is eliminated there column by column — pivot, L column
-//      l_i = W[i,j]/piv, update of the remaining panel columns;
-//   3. X rows inside the panel get the same column sweep as the TPU
-//      kernel's _small_ldl_inv: row j of X is final when step j runs, so
-//      X[i,:j+1] -= l_i X[j,:j+1] for the panel rows i > j;
-//   4. the trailing matrix gets A22 -= L21 D L21^T and the rows below the
-//      panel get X[i,:k1] -= L21 X[panel,:k1], both as 64x64 output tiles
-//      with a 4x4 register tile per thread, reading L21 and the panel's X
-//      rows from shared memory.
-// An unblocked column-by-column sweep would read and write the whole
-// trailing matrix once per column; at the bigleaf shape
-// [64,1024,1024] (256 MB, past L2) that is ~180 GB of device traffic per
-// factorization.  The panel cuts it by the panel width.
-// All arithmetic is f32 FFMA — no TF32 and no wgmma — matching the TPU
-// kernel's Precision.HIGHEST pin.
+// What bounds it on an H100.  At the big leaves [64,1024,1024] the work is
+// 2a^3/3 flops per matrix, 0.68 ms at the f32 FFMA peak (67 TFLOP/s); the
+// bytes (A in, X out) take 0.32 ms, but a blocked elimination also streams
+// the trailing matrix and X's lower rows through device memory once per
+// panel (~45 MB per matrix at nb = 64, 0.85 ms for the batch).  At
+// [64,256,256] and at the B = 1 roots the work is tens of microseconds or
+// less, and launches and the serial chain of diagonal blocks set the time.
 //
-// What bounds it.  At a=256, B=64 the kernel is bound by the sequential
-// chain (a column steps, each ending in __syncthreads, plus a/16 panel
-// updates) and by L2 latency on the trailing update, with only 64 of 132
-// SMs busy.  Later work: a larger panel held in shared memory with the
-// trailing update in 3xTF32 or DMMA on the tensor cores, thread-block
-// clusters (distributed shared memory) for a <= 256, or splitting one
-// matrix over several CTAs when B < 132.
+// Design: blocked right-looking LDL^T with panel width nb = 64, every
+// update of rank 64, one matrix spread over many CTAs.  An edge a <= 128
+// is one launch of part (a) on the whole matrix.  Otherwise panel step
+// k0 -> k1 = k0 + nb is three launches:
+//   diag    (a)  one CTA per matrix factors the nb x nb diagonal block,
+//                A11 = L11 D1 L11^T, and forms X11 = L11^{-1}, every
+//                element in a register, one __syncthreads per column;
+//   panel   (b)  L21 = A21 X11^T D1^{-1} in 64 x 64 tiles, written over
+//                A21 in W;
+//           (a') the panel's X rows left of the block, X11 X[k0:k1, :k0],
+//                one 64-column strip per CTA, in place; the strips right
+//                of the block are written as zeros (X's upper triangle);
+//   update  (c)  A22 -= L21 D1 L21^T on the lower 64 x 64 tiles only (the
+//                triangular tile index in closed form);
+//           (d)  X[k1:, :k1] -= L21 X[k0:k1, :k1], the elimination applied
+//                to the identity.
+// The tile parts are GEMMs of depth nb: each CTA stages its two operands
+// in shared memory in two slices of depth 32, with 16-byte cp.async
+// (4-byte when a is not a multiple of 4): the second slice lands while the
+// first is used, and an update's old values are loaded into registers
+// under both.  256 threads each keep a 4 x 4 tile of f32 sums and read
+// their operands as float4.  Grids are (tiles x batch): thousands of CTAs
+// at the big leaves, several at a B = 1 root.
+// Shared memory holds the two slices of both operands (36 KB) and the
+// diagonal kernel's published rows, never a full-height panel, so no edge
+// a is refused: any a whose A, X and W fit in device memory is taken.  The
+// first step reads A and writes W; later steps work in W, which the
+// wrapper allocates.  One writer per output element and no atomics, so
+// results do not depend on the schedule.  All arithmetic is f32 FFMA: no
+// TF32 (the port pins it off; reduced-precision products stalled the IPM
+// near mu 1e-3).  Measured and not kept: a 3xTF32 mma.sync variant of the
+// tile GEMMs (passed the accuracy gate, ran 1.5x slower: operands split
+// per use, 185+ registers, one CTA per SM), and nb = 128 (1% faster at
+// a = 1024, slower at a = 2048 and at the roots: the update is not bound
+// by its traffic).
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPanel = 16;           // panel width (columns)
-constexpr int kLdp = kPanel + 1;     // padded row stride of the panel copy
-constexpr int kTile = 64;            // output tile edge: 16x16 threads x 4x4
-constexpr int kMaxSmem = 232448;     // bytes a CTA may opt in to on sm_90
+constexpr int kNb = 64;            // panel width: the rank of the updates
+constexpr int kOneBlock = 128;     // a <= this: one diagonal-block launch
+constexpr int kTile = 64;          // output tile edge of parts (b)-(d)
+constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kSlice = 32;         // depth of one cp.async stage
+constexpr int kLds = kSlice + 4;   // stride of [row][depth] slots: float4
+                                   // reads of 8 rows hit 32 banks
+constexpr int kLdsKN = kTile + 4;  // stride of [depth][column] slots
+constexpr int kSlot = kTile * kLds;  // floats per slot (>= kSlice * kLdsKN)
+constexpr int kMaxGridY = 65535;
+static_assert(kSlice * kLdsKN <= kSlot, "a [depth][column] slot fits");
 
-__host__ __device__ constexpr size_t smem_bytes(int a) {
-  return (static_cast<size_t>(a) * kLdp + static_cast<size_t>(kPanel) * a +
-          2 * kPanel) * sizeof(float);
+__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
+                                         int bytes, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int n = valid ? bytes : 0;  // 0: fill the destination with zeros
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// acc[r][c] = sum_jj lhs(row r, jj) * rhs(jj, col c) over one panel, for the
-// rows r0 + 16 r and columns c0 + 16 c of a 64x64 tile.
-template <typename Lhs, typename Rhs>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], int pw, Lhs lhs,
-                                         Rhs rhs) {
+// Copy rows [r0, r0 + R) x columns [c0, c0 + C) of the row-major block g
+// (leading dimension ld) into sm (row stride LD) from its origin; rows >=
+// nrows and columns >= ncols (of g) read as zeros.  V floats per copy.
+template <int V, int R, int C, int LD>
+__device__ __forceinline__ void stage(float* sm, const float* g, int ld,
+                                      int r0, int c0, int nrows, int ncols) {
+  constexpr int per_row = C / V;
+  for (int t = threadIdx.x; t < R * per_row; t += kThreads) {
+    const int r = t / per_row, c = (t % per_row) * V;
+    const bool ok = r0 + r < nrows && c0 + c < ncols;
+    cp_async(sm + r * LD + c,
+             ok ? g + static_cast<size_t>(r0 + r) * ld + c0 + c : g, V * 4,
+             ok);
+  }
+}
+// Scale column c of the chunks that `stage` (same arguments) gave this
+// thread by d[c0 + c]: after cp.async.wait_group they are visible to it.
+template <int V, int R, int C, int LD>
+__device__ __forceinline__ void scale_cols(float* sm, const float* d, int c0,
+                                           int ncols) {
+  constexpr int per_row = C / V;
+  for (int t = threadIdx.x; t < R * per_row; t += kThreads) {
+    const int r = t / per_row, c = (t % per_row) * V;
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      if (c0 + c + v < ncols) sm[r * LD + c + v] *= d[c0 + c + v];
+  }
+}
+
+// acc[r][c] += sum over the kSlice depths of a slot of
+//   As[row r][kk] * Bs[col c][kk]   (NK: B holds rows of the column index)
+//   As[row r][kk] * Bs[kk][col c]   (KN: B holds rows of the depth index)
+// for rows ty + 16 r and columns tx + 16 c (NK) or 4 tx + c (KN).
+template <bool kKN>
+__device__ __forceinline__ void mma_slice(float (&acc)[4][4], const float* As,
+                                          const float* Bs) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 2
+  for (int kk = 0; kk < kSlice; kk += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      av[r] = *reinterpret_cast<const float4*>(As + (ty + 16 * r) * kLds + kk);
+    if (kKN) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bv[q] =
+            *reinterpret_cast<const float4*>(Bs + (kk + q) * kLdsKN + 4 * tx);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a4[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[r][0] = fmaf(a4[q], bv[q].x, acc[r][0]);
+          acc[r][1] = fmaf(a4[q], bv[q].y, acc[r][1]);
+          acc[r][2] = fmaf(a4[q], bv[q].z, acc[r][2]);
+          acc[r][3] = fmaf(a4[q], bv[q].w, acc[r][3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        bv[c] =
+            *reinterpret_cast<const float4*>(Bs + (tx + 16 * c) * kLds + kk);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float s = acc[r][c];
+          s = fmaf(av[r].x, bv[c].x, s);
+          s = fmaf(av[r].y, bv[c].y, s);
+          s = fmaf(av[r].z, bv[c].z, s);
+          s = fmaf(av[r].w, bv[c].w, s);
+          acc[r][c] = s;
+        }
+    }
+  }
+}
+
+__device__ __forceinline__ int out_row(int r) {
+  return threadIdx.x / 16 + 16 * r;
+}
+__device__ __forceinline__ int out_col(bool kn, int c) {
+  const int tx = threadIdx.x % 16;
+  return kn ? 4 * tx + c : tx + 16 * c;
+}
+
+// One 64 x 64 output tile of depth k_valid <= kNb:
+//   acc = Ag[rows, :k] . (NK: Bg[cols, :k]^T  |  KN: Bg[:k, cols])
+// Ag, Bg point at the tiles' first elements; an_rows / b_rows / b_cols
+// bound the valid part (the rest reads as zeros).  If dscale is given, B's
+// depth index is scaled by it (NK only).  The depth comes in two cp.async
+// stages of kSlice, one slot of As and Bs each: the second stage lands
+// while the first is used.
+template <int V, bool kKN>
+__device__ __forceinline__ void tile_gemm(float (&acc)[4][4], float* As,
+                                          float* Bs, const float* Ag,
+                                          const float* Bg, int ld,
+                                          int an_rows, int b_rows, int b_cols,
+                                          int k_valid, const float* dscale) {
+  static_assert(kNb == 2 * kSlice, "the depth is two stages");
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* as = As + h * kSlot;
+    float* bs = Bs + h * kSlot;
+    stage<V, kTile, kSlice, kLds>(as, Ag, ld, 0, h * kSlice, an_rows,
+                                  k_valid);
+    if (kKN)
+      stage<V, kSlice, kTile, kLdsKN>(bs, Bg, ld, h * kSlice, 0,
+                                      min(b_rows, k_valid), b_cols);
+    else
+      stage<V, kTile, kSlice, kLds>(bs, Bg, ld, 0, h * kSlice, b_rows,
+                                    k_valid);
+    cp_async_commit();
+  }
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  for (int jj = 0; jj < pw; ++jj) {
-    float av[4], bv[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) av[r] = lhs(r, jj);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) bv[c] = rhs(jj, c);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+  for (int h = 0; h < 2; ++h) {
+    if (h == 0)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    if (dscale)
+      scale_cols<V, kTile, kSlice, kLds>(Bs + h * kSlot, dscale, h * kSlice,
+                                         k_valid);
+    __syncthreads();
+    mma_slice<kKN>(acc, As + h * kSlot, Bs + h * kSlot);
   }
 }
 
+// ---- (a) the diagonal block, one CTA per matrix ----------------------------
+// NB = kNb, or kOneBlock when the whole matrix is one block.  The CTA
+// holds the block's lower triangle in registers, element (ty + 16 r,
+// tx + 16 c) in m[r][c], and W shares the slots with X11: after step j,
+// column j of the strict lower triangle holds X11, not W.  Step j
+// publishes v = (row j of X11 left of j, the pivot, column j of W below
+// j) through shared memory; then every row i > j does
+//   m[i][k] -= l_i v[k] (k != j),  m[i][j] = -l_i,  l_i = W[i][j] / piv,
+// the W update for k > j and the X update for k < j at once.  The column
+// block jq = j / 16 is a compile-time index, so the owners publish without
+// selects and the rows r < jq, all above j, are skipped.  One barrier per
+// column: step j + 1 publishes into the other buffer, and no thread
+// reaches step j + 2 before all have passed step j + 1's.
+template <int NB>
 __global__ void __launch_bounds__(kThreads)
-    ldl_inverse_kernel(const float* __restrict__ A, float* __restrict__ X,
-                       float* __restrict__ d, float* __restrict__ W, int a) {
-  extern __shared__ float smem[];
-  float* Ls = smem;                                 // [a][kLdp] panel columns
-  float* Xs = Ls + static_cast<size_t>(a) * kLdp;   // [kPanel][a] panel X rows
-  float* cj = Xs + static_cast<size_t>(kPanel) * a; // [kPanel] raw column
-  float* dj = cj + kPanel;                          // [kPanel] panel pivots
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+    ldl_diag_kernel(const float* __restrict__ src, float* __restrict__ X,
+                    float* __restrict__ d, int a, int k0) {
+  constexpr int Q = NB / 16;
+  __shared__ float v[2][NB];
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int pw = min(NB, a - k0);
   const size_t off = static_cast<size_t>(blockIdx.x) * a * a;
-  const float* Ab = A + off;
-  float* Wb = W + off;
-  float* Xb = X + off;
-  float* db = d + static_cast<size_t>(blockIdx.x) * a;
-
-  const int aa = a * a;
-  for (int idx = tid; idx < aa; idx += kThreads) {
-    const int r = idx / a, c = idx - r * a;
-    Wb[idx] = Ab[idx];
-    Xb[idx] = (r == c) ? 1.f : 0.f;
+  const float* S = src + off + static_cast<size_t>(k0) * a + k0;
+  float* db = d + static_cast<size_t>(blockIdx.x) * a + k0;
+  float m[Q][Q];
+#pragma unroll
+  for (int r = 0; r < Q; ++r)
+#pragma unroll
+    for (int c = 0; c < Q; ++c) {
+      const int i = ty + 16 * r, k = tx + 16 * c;
+      m[r][c] = (i < pw && k <= i) ? S[static_cast<size_t>(i) * a + k] : 0.f;
+    }
+#pragma unroll
+  for (int jq = 0; jq < Q; ++jq) {
+    for (int jl = 0; jl < 16; ++jl) {
+      const int j = 16 * jq + jl, buf = j & 1;
+      if (j >= pw) break;
+      if (tx == jl) {  // column j, rows >= j
+#pragma unroll
+        for (int r = jq; r < Q; ++r)
+          if (ty + 16 * r >= j) v[buf][ty + 16 * r] = m[r][jq];
+      }
+      if (ty == jl) {  // row j, columns < j
+#pragma unroll
+        for (int c = 0; c <= jq; ++c)
+          if (tx + 16 * c < j) v[buf][tx + 16 * c] = m[jq][c];
+      }
+      __syncthreads();
+      const float piv = v[buf][j];
+      if (threadIdx.x == 0) db[j] = piv;
+      const float inv = 1.f / piv;
+      float vk[Q];
+#pragma unroll
+      for (int c = 0; c < Q; ++c) vk[c] = v[buf][tx + 16 * c];
+#pragma unroll
+      for (int r = jq; r < Q; ++r) {
+        const float l = ty + 16 * r > j ? v[buf][ty + 16 * r] * inv : 0.f;
+#pragma unroll
+        for (int c = 0; c < Q; ++c) m[r][c] = fmaf(-l, vk[c], m[r][c]);
+        if (tx == jl) m[r][jq] = ty + 16 * r > j ? -l : m[r][jq];
+      }
+    }
   }
-  __syncthreads();
-
-  for (int k0 = 0; k0 < a; k0 += kPanel) {
-    const int pw = min(kPanel, a - k0);
-    const int k1 = k0 + pw;
-
-    // 1. panel columns of rows k0..a-1 into shared memory
-    for (int idx = tid; idx < (a - k0) * pw; idx += kThreads) {
-      const int i = k0 + idx / pw, c = idx % pw;
-      Ls[i * kLdp + c] = Wb[static_cast<size_t>(i) * a + k0 + c];
-    }
-    __syncthreads();
-
-    // 2. eliminate the panel column by column (only the lower part is read;
-    //    entries above the diagonal may hold stale values)
-    for (int jj = 0; jj < pw; ++jj) {
-      const int j = k0 + jj;
-      if (tid < pw) cj[tid] = Ls[(k0 + tid) * kLdp + jj];
-      __syncthreads();
-      const float piv = cj[jj];
-      for (int i = j + 1 + tid; i < a; i += kThreads) {
-        float* row = Ls + i * kLdp;
-        const float l = row[jj] / piv;
-        for (int c = jj + 1; c < pw; ++c) row[c] = fmaf(-l, cj[c], row[c]);
-        row[jj] = l;
-      }
-      __syncthreads();
-    }
-    if (tid < pw) {
-      const float p = Ls[(k0 + tid) * kLdp + tid];
-      dj[tid] = p;
-      db[k0 + tid] = p;
-    }
-
-    // 3. X rows inside the panel: X[i,:j+1] -= l_ij X[j,:j+1], i in (j,k1)
-    for (int jj = 0; jj + 1 < pw; ++jj) {
-      const int j = k0 + jj;
-      const int ncols = j + 1, nrows = k1 - j - 1;
-      for (int t = tid; t < nrows * ncols; t += kThreads) {
-        const int i = j + 1 + t / ncols, c = t % ncols;
-        Xb[static_cast<size_t>(i) * a + c] = fmaf(
-            -Ls[i * kLdp + jj], Xb[static_cast<size_t>(j) * a + c],
-            Xb[static_cast<size_t>(i) * a + c]);
-      }
-      __syncthreads();
-    }
-
-    // stage the panel's final X rows (columns < k1) in shared memory
-    for (int idx = tid; idx < pw * k1; idx += kThreads) {
-      const int r = idx / k1, c = idx % k1;
-      Xs[r * a + c] = Xb[static_cast<size_t>(k0 + r) * a + c];
-    }
-    __syncthreads();
-
-    const int m = a - k1;
-    if (m > 0) {
-      const int nt = (m + kTile - 1) / kTile;
-      // 4a. trailing update A22 -= L21 D L21^T over the lower tiles
-      for (int t = 0; t < nt * (nt + 1) / 2; ++t) {
-        int ti = 0;
-        while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-        const int tk = t - ti * (ti + 1) / 2;
-        const int r0 = k1 + ti * kTile + ty, c0 = k1 + tk * kTile + tx;
-        float acc[4][4];
-        tile_dot(
-            acc, pw,
-            [&](int r, int jj) {
-              const int i = r0 + 16 * r;
-              return i < a ? Ls[i * kLdp + jj] : 0.f;
-            },
-            [&](int jj, int c) {
-              const int k = c0 + 16 * c;
-              return k < a ? Ls[k * kLdp + jj] * dj[jj] : 0.f;
-            });
+  float* Xo = X + off + static_cast<size_t>(k0) * a + k0;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = r0 + 16 * r;
-          if (i >= a) continue;
+  for (int r = 0; r < Q; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int k = c0 + 16 * c;
-            if (k < a) Wb[static_cast<size_t>(i) * a + k] -= acc[r][c];
-          }
+    for (int c = 0; c < Q; ++c) {
+      const int i = ty + 16 * r, k = tx + 16 * c;
+      if (i < pw && k < pw)
+        Xo[static_cast<size_t>(i) * a + k] =
+            i == k ? 1.f : (k < i ? m[r][c] : 0.f);
+    }
+}
+
+// ---- (b) L21 and (a') the panel's X rows -----------------------------------
+// grid.x: n_rows tiles of (b), then one 64-column strip of the panel's X
+// rows per column tile outside the diagonal block; grid.y walks the batch.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    ldl_panel_kernel(const float* __restrict__ src, float* __restrict__ W,
+                     float* __restrict__ X, const float* __restrict__ d,
+                     int B, int a, int k0) {
+  __shared__ __align__(16) float As[2 * kSlot];
+  __shared__ __align__(16) float Bs[2 * kSlot];
+  const int pw = min(kNb, a - k0), k1 = k0 + pw;
+  const int n_rows = (a - k1 + kTile - 1) / kTile;
+  const int u = blockIdx.x;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const size_t off = static_cast<size_t>(b) * a * a;
+    const float* X11 = X + off + static_cast<size_t>(k0) * a + k0;
+    float acc[4][4];
+    if (u < n_rows) {
+      // (b): L21[i, j] = sum_kk A21[i, kk] X11[j, kk] / d[j]
+      const int i0 = k1 + u * kTile;
+      const float* A21 = src + off + static_cast<size_t>(i0) * a + k0;
+      tile_gemm<V, false>(acc, As, Bs, A21, X11, a, a - i0, pw, 0, pw,
+                          nullptr);
+      const float* dp = d + static_cast<size_t>(b) * a + k0;
+      float* L21 = W + off + static_cast<size_t>(i0) * a + k0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i0 + out_row(r) >= a) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = out_col(false, c);
+          L21[static_cast<size_t>(out_row(r)) * a + j] = acc[r][c] / dp[j];
         }
       }
-      // 4b. rows below the panel: X[i,:k1] -= L21 X[panel,:k1]
-      const int nc = (k1 + kTile - 1) / kTile;
-      for (int t = 0; t < nt * nc; ++t) {
-        const int r0 = k1 + (t / nc) * kTile + ty;
-        const int c0 = (t % nc) * kTile + tx;
-        float acc[4][4];
-        tile_dot(
-            acc, pw,
-            [&](int r, int jj) {
-              const int i = r0 + 16 * r;
-              return i < a ? Ls[i * kLdp + jj] : 0.f;
-            },
-            [&](int jj, int c) {
-              const int k = c0 + 16 * c;
-              return k < k1 ? Xs[jj * a + k] : 0.f;
-            });
+    } else {
+      const int t = u - n_rows, left = k0 / kTile;
+      const int c0 = (t < left ? t : t - left + k1 / kTile) * kTile;
+      float* Xp = X + off + static_cast<size_t>(k0) * a + c0;
+      if (c0 < k0) {
+        // (a'): X[k0 + r, c] = sum_kk X11[r, kk] X[k0 + kk, c], in place:
+        // this CTA alone reads and writes these 64 columns of the strip,
+        // and tile_gemm's last barrier follows every read
+        tile_gemm<V, true>(acc, As, Bs, X11, Xp, a, pw, pw, kTile, pw,
+                           nullptr);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          const int i = r0 + 16 * r;
-          if (i >= a) continue;
+          if (out_row(r) >= pw) continue;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int k = c0 + 16 * c;
-            if (k < k1) Xb[static_cast<size_t>(i) * a + k] -= acc[r][c];
-          }
+          for (int c = 0; c < 4; ++c)
+            Xp[static_cast<size_t>(out_row(r)) * a + out_col(true, c)] =
+                acc[r][c];
+        }
+      } else {
+        // X's upper triangle right of the diagonal block
+        const int w = min(kTile, a - c0);
+        for (int e = threadIdx.x; e < pw * kTile; e += kThreads) {
+          const int i = e / kTile, c = e % kTile;
+          if (c < w) Xp[static_cast<size_t>(i) * a + c] = 0.f;
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the slots are restaged for the next matrix
   }
+}
+
+// ---- (c) trailing update and (d) X rows below the panel --------------------
+// grid.x: the n(n+1)/2 lower tiles of (c), then n x k1/64 tiles of (d).
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    ldl_update_kernel(const float* __restrict__ src, float* __restrict__ W,
+                      float* __restrict__ X, const float* __restrict__ d,
+                      int B, int a, int k0) {
+  __shared__ __align__(16) float As[2 * kSlot];
+  __shared__ __align__(16) float Bs[2 * kSlot];
+  const int k1 = k0 + kNb;
+  const int n = (a - k1 + kTile - 1) / kTile;
+  const int n_c = n * (n + 1) / 2;
+  const int u = blockIdx.x;
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const size_t off = static_cast<size_t>(b) * a * a;
+    float acc[4][4], old[4][4];
+    if (u < n_c) {
+      // (c): lower tile (ti, tk), ti >= tk, of the trailing matrix
+      int ti = static_cast<int>((sqrt(8.0 * u + 1.0) - 1.0) * 0.5);
+      if ((ti + 1) * (ti + 2) / 2 <= u) ++ti;  // guard sqrt's rounding
+      if (ti * (ti + 1) / 2 > u) --ti;
+      const int tk = u - ti * (ti + 1) / 2;
+      const int i0 = k1 + ti * kTile, j0 = k1 + tk * kTile;
+      const float* S = src + off + static_cast<size_t>(i0) * a + j0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = out_row(r), j = out_col(false, c);
+          old[r][c] = (i0 + i < a && j0 + j < a)
+                          ? S[static_cast<size_t>(i) * a + j]
+                          : 0.f;
+        }
+      const float* Li = W + off + static_cast<size_t>(i0) * a + k0;
+      const float* Lj = W + off + static_cast<size_t>(j0) * a + k0;
+      tile_gemm<V, false>(acc, As, Bs, Li, Lj, a, a - i0, a - j0, 0, kNb,
+                          d + static_cast<size_t>(b) * a + k0);
+      float* Wo = W + off + static_cast<size_t>(i0) * a + j0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i0 + out_row(r) >= a) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j0 + out_col(false, c) < a)
+            Wo[static_cast<size_t>(out_row(r)) * a + out_col(false, c)] =
+                old[r][c] - acc[r][c];
+      }
+    } else {
+      // (d): X[i, c] -= sum_kk L21[i, kk] X[k0 + kk, c], c < k1; the
+      // columns k0..k1 of rows below the panel are still zero (unwritten)
+      const int n_x = k1 / kTile;
+      const int t = u - n_c;
+      const int i0 = k1 + (t / n_x) * kTile, c0 = (t % n_x) * kTile;
+      float* Xo = X + off + static_cast<size_t>(i0) * a + c0;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          old[r][c] = (i0 + out_row(r) < a && c0 < k0)
+                          ? Xo[static_cast<size_t>(out_row(r)) * a +
+                               out_col(true, c)]
+                          : 0.f;
+      const float* Li = W + off + static_cast<size_t>(i0) * a + k0;
+      const float* Xp = X + off + static_cast<size_t>(k0) * a + c0;
+      tile_gemm<V, true>(acc, As, Bs, Li, Xp, a, a - i0, kNb, kTile, kNb,
+                         nullptr);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i0 + out_row(r) >= a) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          Xo[static_cast<size_t>(out_row(r)) * a + out_col(true, c)] =
+              old[r][c] - acc[r][c];
+      }
+    }
+    __syncthreads();  // the slots are restaged for the next matrix
+  }
+}
+
+template <int V>
+int run(const float* A, float* X, float* d, float* W, int B, int a,
+        cudaStream_t s) {
+  if (a <= kOneBlock) {
+    if (a <= kNb)
+      ldl_diag_kernel<kNb><<<B, kThreads, 0, s>>>(A, X, d, a, 0);
+    else
+      ldl_diag_kernel<kOneBlock><<<B, kThreads, 0, s>>>(A, X, d, a, 0);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int gy = min(B, kMaxGridY);
+  const int n_all = (a + kTile - 1) / kTile;
+  for (int k0 = 0; k0 < a; k0 += kNb) {
+    const float* src = k0 == 0 ? A : W;
+    const int k1 = min(k0 + kNb, a);
+    ldl_diag_kernel<kNb><<<B, kThreads, 0, s>>>(src, X, d, a, k0);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int n = (a - k1 + kTile - 1) / kTile;
+    const int strips = k0 / kTile + (k1 < a ? n_all - k1 / kTile : 0);
+    ldl_panel_kernel<V><<<dim3(n + strips, gy), kThreads, 0, s>>>(
+        src, W, X, d, B, a, k0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n > 0) {
+      ldl_update_kernel<V>
+          <<<dim3(n * (n + 1) / 2 + n * (k1 / kTile), gy), kThreads, 0, s>>>(
+              src, W, X, d, B, a, k0);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  return 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// Largest matrix edge whose panel fits in one CTA's shared memory.
-extern "C" int ldl_inverse_max_dim() {
-  int a = 1;
-  while (smem_bytes(a + 1) <= kMaxSmem) ++a;
-  return a;
+// Panel width at edge a: the width of the diagonal blocks.
+extern "C" int ldl_inverse_nb(int a) {
+  return a > kNb && a <= kOneBlock ? kOneBlock : kNb;
+}
+
+// CUDA launches one call makes at edge a: one for a <= 128; otherwise per
+// panel step the diagonal block and the panel, and the update on every
+// step but the last.
+extern "C" int ldl_inverse_launches(int a) {
+  if (a <= 0) return 0;
+  if (a <= kOneBlock) return 1;
+  return 3 * ((a + kNb - 1) / kNb) - 1;
 }
 
 // A, X, W: [B, a, a] float32 row major on the device; d: [B, a].  W is
-// scratch.  Launches on `stream` and returns cudaGetLastError().
+// scratch.  Launches on `stream` and returns the first nonzero
+// cudaGetLastError() of its launches, else 0.
 extern "C" int ldl_inverse_f32(const float* A, float* X, float* d, float* W,
                                int B, int a, void* stream) {
   if (B <= 0 || a <= 0) return 0;
-  const size_t smem = smem_bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(
-      ldl_inverse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ldl_inverse_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, X, d, W, a);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a % 4 == 0 && aligned16(A) && aligned16(X) && aligned16(W))
+    return run<4>(A, X, d, W, B, a, s);
+  return run<1>(A, X, d, W, B, a, s);
 }

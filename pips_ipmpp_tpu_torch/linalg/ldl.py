@@ -13,8 +13,10 @@ indefinite root go through the same routine.  No pivot is checked here:
 
 `ldl_inverse_factors` dispatches on the tensor's device: a CPU tensor goes
 to the plain torch version `ldl_inverse_factors_ref`, a CUDA tensor to the
-hand-written Hopper kernel `csrc/ldl_inverse.cu`.  There is no fallback
-from one to the other.
+hand-written Hopper kernel `csrc/ldl_inverse.cu`, which takes any edge a
+whose [B, a, a] input, output and scratch fit in device memory.  There is
+no fallback from one to the other.  `ldl_inverse_factors_blocked_ref` is
+the kernel's blocked algorithm in plain torch, for the tests.
 """
 from __future__ import annotations
 
@@ -45,6 +47,39 @@ def ldl_inverse_factors_ref(A: torch.Tensor):
     return X, d
 
 
+def ldl_inverse_factors_blocked_ref(A: torch.Tensor, nb: int = 64):
+    """Plain torch mirror of the CUDA kernel's blocked algorithm.
+
+    Per panel step k0 -> k1 = k0 + nb (the kernel's launches in brackets):
+      (a) [diag]   A11 = L11 D1 L11^T and X11 = L11^{-1} on the diagonal
+                   block; the panel's X rows left of it become
+                   X11 X[k0:k1, :k0] [panel launch];
+      (b) [panel]  L21 = A21 X11^T D1^{-1};
+      (c) [update] A22 -= L21 D1 L21^T;
+      (d) [update] X[k1:, :k1] -= L21 X[k0:k1, :k1].
+    Tests hold it against `ldl_inverse_factors_ref` so that the kernel's
+    decomposition is pinned where the kernel cannot run; the solver never
+    calls it."""
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"expected [B, a, a], got {tuple(A.shape)}")
+    B, a, _ = A.shape
+    W = A.clone()
+    X = torch.zeros_like(A)
+    d = torch.empty((B, a), dtype=A.dtype, device=A.device)
+    for k0 in range(0, a, nb):
+        k1 = min(k0 + nb, a)
+        X11, d1 = ldl_inverse_factors_ref(W[:, k0:k1, k0:k1])      # (a)
+        d[:, k0:k1] = d1
+        X[:, k0:k1, :k0] = X11 @ X[:, k0:k1, :k0]
+        X[:, k0:k1, k0:k1] = X11
+        if k1 == a:
+            break
+        L21 = W[:, k1:, k0:k1] @ X11.mT / d1[:, None, :]            # (b)
+        W[:, k1:, k1:] -= (L21 * d1[:, None, :]) @ L21.mT           # (c)
+        X[:, k1:, :k1] -= L21 @ X[:, k0:k1, :k1]                    # (d)
+    return X, d
+
+
 def _ldl_inverse_factors_cuda(A: torch.Tensor):
     from pips_ipmpp_tpu_torch import _build
 
@@ -61,9 +96,6 @@ def _ldl_inverse_factors_cuda(A: torch.Tensor):
     if B == 0 or a == 0:
         return X, d
     lib = _build.load()
-    if a > lib.ldl_inverse_max_dim():
-        raise ValueError(f"a={a} exceeds the CUDA LDL kernel's limit "
-                         f"{lib.ldl_inverse_max_dim()} (shared memory)")
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         rc = lib.ldl_inverse_f32(A.data_ptr(), X.data_ptr(), d.data_ptr(),

@@ -1,6 +1,7 @@
 """Where the time of the port's solves goes, on one CUDA card.
 
     python3 profile_port.py [path ...] [--window W] [--cg-iters K]
+    python3 profile_port.py --ldl [--ldl-against DIR]
 
 Paths are `chip_smoke.paths()`: `flagship`, `bigleaf`, `sparse_f32`,
 `sparse_f64` and `sweep` (default: every path), each solved by the
@@ -20,22 +21,36 @@ per iteration, the busy share (device time over the window's host-clock
 time) and the kernels that took the most device time; and the
 iterations' mu, residual, step lengths and Gondzio correctors.  The last
 line is the card's name and power limit.
+
+`--ldl` times the LDL kernel instead, at `chip_smoke.LDL_SHAPES`: per
+shape one JSON line with its device time per call (profiler), each of its
+CUDA kernels' share and launches, and its error against the f64 inverse
+beside the plain f32 version's (`chip_smoke.rel_err`).  `--ldl-against
+DIR` also builds `DIR/pips_ipmpp_tpu_torch/csrc/ldl_inverse.cu` (another
+checkout, for example the parent commit unpacked with `git archive`) with
+the same flags, gives its error too, and times the two in turns, other,
+this, this, other; a shape the other kernel refuses shows its CUDA error
+instead.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 import time
 from functools import partial
+from pathlib import Path
 
 import torch
 
 import chip_smoke as cs
-from pips_ipmpp_tpu_torch import PIPSIPMppTorchInterface
+from pips_ipmpp_tpu_torch import PIPSIPMppTorchInterface, _build
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
+from pips_ipmpp_tpu_torch.linalg import ldl
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import batched_pcg
 from pips_ipmpp_tpu_torch.scale import make_scaler
 
@@ -121,6 +136,82 @@ def profile_window(lp, solver, it, window):
                             for e in top])
 
 
+def other_ldl(root):
+    """`ldl_inverse_f32` of another checkout's source, built alone with
+    this tree's nvcc flags into this tree's build directory."""
+    src = (Path(root) / "pips_ipmpp_tpu_torch" / "csrc"
+           / "ldl_inverse.cu").resolve()
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"libldl_other_{tag}.so"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
+                        str(out), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).ldl_inverse_f32
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def ldl_table(against):
+    """The LDL kernel's device time per call at every LDL_SHAPES entry,
+    with its parts, and, given another checkout, that one's in turns."""
+    lib = _build.load()
+    other = other_ldl(against) if against else None
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(0)
+    for B, a, n_pos in cs.LDL_SHAPES:
+        A = cs.ldl_input(B, a, n_pos, gen)
+        A32 = A.float().contiguous()
+        ref_inv = ldl.inverse_from_factors(*ldl.ldl_inverse_factors_ref(A))
+        del A
+
+        def err(X, d):
+            return cs.rel_err(ldl.inverse_from_factors(X.double(), d.double()),
+                              ref_inv)[0]
+
+        X, W = torch.empty_like(A32), torch.empty_like(A32)
+        d = torch.empty(B, a, device=cs.DEVICE)
+        stream = torch.cuda.current_stream().cuda_stream
+        this = lambda: ldl.ldl_inverse_factors(A32)           # noqa: E731
+        reps = 5 if a >= 1024 else 20
+        row = dict(shape=[B, a, a], n_pos=n_pos, nb=lib.ldl_inverse_nb(a),
+                   launches_per_call=lib.ldl_inverse_launches(a),
+                   this_rel_err=err(*this()),
+                   plain_f32_rel_err=err(*ldl.ldl_inverse_factors_ref(A32)))
+        if other is not None:
+            rc = other(A32.data_ptr(), X.data_ptr(), d.data_ptr(),
+                       W.data_ptr(), B, a, stream)
+            torch.cuda.synchronize()
+            if rc:
+                row["other_error"] = rc
+                row["this_ms"] = [cs.device_ms(this, reps)]
+            else:
+                row["other_rel_err"] = err(X, d)
+                run_other = lambda: other(                    # noqa: E731
+                    A32.data_ptr(), X.data_ptr(), d.data_ptr(),
+                    W.data_ptr(), B, a, stream)
+                t = [cs.device_ms(f, reps)
+                     for f in (run_other, this, this, run_other)]
+                row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
+        else:
+            row["this_ms"] = [cs.device_ms(this, reps)]
+        this()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                this()
+            torch.cuda.synchronize()
+        row["parts"] = {e.key.split("::")[-1].split("(")[0]: dict(
+            ms=e.self_device_time_total / 1e3 / reps,
+            launches=e.count / reps)
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+        print("ldl_time", json.dumps(row), flush=True)
+        del A32, X, W, d, ref_inv
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     table = cs.paths()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -129,13 +220,19 @@ def main(argv):
     ap.add_argument("--window", type=int, default=4,
                     help="profiled iterations (0: one timed solve only)")
     ap.add_argument("--cg-iters", type=int, default=None)
+    ap.add_argument("--ldl", action="store_true",
+                    help="time the LDL kernel at chip_smoke.LDL_SHAPES")
+    ap.add_argument("--ldl-against", metavar="DIR", default=None,
+                    help="with --ldl: also time DIR's LDL kernel, in turns")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.paths) - set(table))
     if unknown:
         ap.error(f"unknown paths {unknown}")
     cs.require(torch.cuda.is_available(), "no CUDA device")
     pin_float32_precision()
-    for name in args.paths or list(table):
+    if args.ldl:
+        ldl_table(args.ldl_against)
+    for name in args.paths or ([] if args.ldl else list(table)):
         profile(name, table[name], args.window, args.cg_iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,6 +1,7 @@
 """The PyTorch LDL^T module against the JAX Pallas kernel (interpret mode,
-its default off TPU) and against numpy; the CUDA kernel against the plain
-version on a card.
+its default off TPU) and against numpy; the blocked plain version (the CUDA
+kernel's algorithm) against the column version and the Pallas kernel; the
+CUDA kernel against the plain version on a card.
 
 JAX is imported inside the tests that compare with it, so that on a
 machine with a card and no JAX the kernel test runs alone:
@@ -62,6 +63,53 @@ def test_plain_f32_matches_pallas_interpret(case):
     np.testing.assert_array_equal(np.diagonal(Xt, axis1=1, axis2=2), 1.0)
 
 
+# (matrix, positive pivots, panel width nb) for the blocked plain version:
+# a multiple of nb, a not a multiple of nb, a <= nb, and mixed pivot signs
+BLOCKED_CASES = {
+    "spd_4x64_nb16": lambda rng: (_spd(rng, 4, 64), 64, 16),
+    "spd_2x100_nb32": lambda rng: (_spd(rng, 2, 100), 100, 32),
+    "spd_3x12_nb16": lambda rng: (_spd(rng, 3, 12), 12, 16),
+    "quasidef_1x40_nb16": lambda rng: (_quasidefinite(rng, 1, 40, 24), 24,
+                                       16),
+    "quasidef_2x100_nb32": lambda rng: (_quasidefinite(rng, 2, 100, 36), 36,
+                                        32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKED_CASES))
+def test_blocked_f64_matches_column_version(case):
+    A, n_pos, nb = BLOCKED_CASES[case](np.random.default_rng(4))
+    At = torch.from_numpy(A)
+    Xb, db = ldl.ldl_inverse_factors_blocked_ref(At, nb)
+    Xc, dc = ldl.ldl_inverse_factors_ref(At)
+    # the same factors in another order of f64 sums at cond(A) ~ 10
+    normwise_close(Xb.numpy(), Xc.numpy(), 1e-12)
+    normwise_close(db.numpy(), dc.numpy(), 1e-12)
+    assert (db[:, :n_pos] > 0).all() and (db[:, n_pos:] < 0).all()
+    assert np.all(np.triu(Xb.numpy(), 1) == 0.0)
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKED_CASES))
+def test_blocked_f32_matches_pallas_interpret(case):
+    import jax.numpy as jnp
+    from pips_ipmpp_tpu.linalg import pallas_ldl
+
+    A, n_pos, nb = BLOCKED_CASES[case](np.random.default_rng(5))
+    A32 = A.astype(np.float32)
+    Xj, dj = pallas_ldl.ldl_inverse_factors(jnp.asarray(A32), interpret=True)
+    Xb, db = ldl.ldl_inverse_factors_blocked_ref(torch.from_numpy(A32), nb)
+    assert Xb.dtype == torch.float32
+    Xb, db = Xb.numpy(), db.numpy()
+    # as test_plain_f32_matches_pallas_interpret: f32 elimination in two
+    # orders at cond(A) ~ 10
+    normwise_close(_inverse(Xb.astype(np.float64), db.astype(np.float64)),
+                   _inverse(np.asarray(Xj, np.float64),
+                            np.asarray(dj, np.float64)), 1e-4)
+    np.testing.assert_array_equal(np.sign(db), np.sign(np.asarray(dj)))
+    assert (db[:, :n_pos] > 0).all() and (db[:, n_pos:] < 0).all()
+    np.testing.assert_array_equal(np.diagonal(Xb, axis1=1, axis2=2), 1.0)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_f64_matches_numpy_inverse(case):
     A, _ = CASES[case](np.random.default_rng(1))
@@ -108,8 +156,14 @@ def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     rng = np.random.default_rng(3)
+    # one-launch edges (a <= 64, a <= 128), a = 4 nb, a not a multiple of
+    # nb, a quasidefinite B = 1 root, and an edge past the old kernel's
+    # shared-memory cap (1760)
     for A, n_pos in (CASES["spd_4x64"](rng), CASES["quasidef_1x40"](rng),
-                     (_spd(rng, 8, 256), 256)):
+                     (_quasidefinite(rng, 2, 100, 36), 36),
+                     (_spd(rng, 8, 256), 256), (_spd(rng, 2, 300), 300),
+                     (_quasidefinite(rng, 1, 192, 64), 64),
+                     (_spd(rng, 1, 1800), 1800)):
         A32 = torch.from_numpy(A.astype(np.float32)).cuda()
         before = ldl.ldl_inverse_factors.launches
         Xk, dk = ldl.ldl_inverse_factors(A32)
