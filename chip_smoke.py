@@ -4,8 +4,11 @@
 
 Builds the hand-written kernels from `pips_ipmpp_tpu_torch/csrc`, checks
 each against its plain PyTorch version on the card at the shapes the solver
-gives it, then drives every ported path once, each with the kernels'
-launch counts set to 0 just before it and read just after:
+gives it (the ELL kernel on every product the sparse backend launches,
+epilogues included, with its bound counted from the nonzeros, and the
+sliced layout's stored slots per nonzero), then drives every ported path
+once, each with the kernels' launch counts set to 0 just before it and
+read just after (the ELL kernel's also per operator and width):
 
   - the facade on the benchmark's flagship dense shape and the IPMSolver
     on its big-leaf shape (LDL^T kernel), each against the port's own f64
@@ -149,6 +152,7 @@ COUNTED = {"ldl_inverse_f32": ldl.ldl_inverse_factors,
 def reset_counts():
     for fn in COUNTED.values():
         fn.launches = 0
+    spmv.ell_spmm.launches_by.clear()
     batched_pcg.readbacks = batched_pcg.calls = batched_pcg.capped = 0
 
 
@@ -166,6 +170,8 @@ def drive(name, run, kernels):
     out["cg_readbacks"] = batched_pcg.readbacks
     out["cg_calls"] = batched_pcg.calls
     out["cg_capped"] = batched_pcg.capped
+    out["ell_launches_by"] = {f"{op}/c={c}": v for (op, c), v in
+                              sorted(spmv.ell_spmm.launches_by.items())}
     for k in kernels:
         require(counts[k] > 0, f"{name}: the path launched no {k}")
     return out, counts
@@ -254,51 +260,115 @@ def block_csr(val, col, n):
     return coo.coalesce().to_sparse_csr()
 
 
+def ell_bound(op, X, Y, epilogue):
+    """(ms, "bytes" or "operations") for one product: every nonzero's value
+    and column id read once, X, Y and the epilogue's operands once each;
+    2 flops per nonzero and column, one per epilogue multiply and add.
+    Counted from the nonzeros, so the layout does not move it."""
+    e = X.element_size()
+    c = X.shape[2]
+    extra = sum(t.numel() for t in epilogue.values())
+    nbytes = op.nnz * (e + 4) + (X.numel() + Y.numel() + extra) * e
+    flops = 2 * op.nnz * c + Y.numel() * (("alpha" in epilogue)
+                                          + 2 * ("Z" in epilogue))
+    return bound(nbytes, flops, X.dtype)
+
+
+def ell_cases(be, lp, gen):
+    """(label, operator, c, epilogue) of every product the sparse backend
+    launches: the CG's merged operators at c = 1 and c = nS, bare and with
+    the epilogues `_neq_apply` gives them (transposed with alpha = E^-1,
+    forward with beta = F_d and Z = V), and, in f64, the residual
+    products' B, D, Bt, Dt at c = 1."""
+    dtype = be.factor_dtype
+    nS = lp.n0 + lp.mEl + lp.mIl
+    a = lp.mE + lp.mI
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype,
+                           device=DEVICE)
+
+    out = []
+    for c in (1, nS):
+        out += [("fwd", be._M, c, {}), ("bwd", be._Mt, c, {}),
+                ("sq", be._Msq, c, {})]
+        out += [("bwd_alpha", be._Mt, c,
+                 dict(alpha=rand(lp.N, lp.n).abs() + 0.1)),
+                ("fwd_beta_z", be._M, c,
+                 dict(beta=rand(lp.N, a).abs(), Z=rand(lp.N, a, c)))]
+    if dtype == torch.float64:
+        out += [(name, getattr(be, "_" + name), 1, {})
+                for name in ("B", "D", "Bt", "Dt")]
+    return out
+
+
 def check_ell_kernel(slp):
-    """The ELL kernel against its plain version on the operators the sparse
-    backend builds from the scaled 8 x 8192 instance: merged forward
-    [B; D], transposed [Bt | Dt] and squared values, c in {1, 24}, in f32
-    and f64.  Tolerance: max |kernel - plain| <= 1e-5 max |plain| in f32 and
-    <= 1e-12 max |plain| in f64 (summation order only)."""
+    """The ELL kernel against its plain version on every product the
+    sparse backend builds from the scaled 8 x 8192 instance (`ell_cases`),
+    in f32 and f64.  Tolerance: max |kernel - plain| <= 1e-5 max |plain| in
+    f32 and <= 1e-12 max |plain| in f64 (summation order only); with an
+    epilogue the result also equals the kernel's bare product followed by
+    the separate torch operations, to the bit.  Prints each operator's
+    stored slots against its nonzeros; the transposed one must store at
+    most 1.25 slots per nonzero."""
     lp = make_scaler(ScalerType.EQUILIBRIUM).scale(slp.to(DEVICE))
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    nS = slp.n0 + slp.mEl + slp.mIl
     rows = []
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         be = SparseArrowBackend(lp.astype(torch.float64), factor_dtype=dtype)
-        for which, ell in (("fwd", be._M), ("bwd", be._Mt), ("sq", be._Msq)):
-            n_in = lp.n if which != "bwd" else lp.mE + lp.mI
-            csr = block_csr(ell.val, ell.col, n_in)
-            for c in (1, nS):
-                X = torch.randn(ell.N, n_in, c, generator=gen, dtype=dtype,
-                                device=DEVICE)
-                Yk = spmv.ell_spmm(ell.val, ell.col, X)
-                torch.cuda.synchronize()
-                Yp = spmv.ell_spmm_ref(ell.val, ell.col, X)
-                scale = float(Yp.abs().amax())
-                err = float((Yk - Yp).abs().amax())
-                X2 = X.reshape(-1, c)
-                lib_err = float((torch.sparse.mm(csr, X2).reshape(Yp.shape)
-                                 - Yp).abs().amax())
-                times = timings(
-                    lambda: spmv.ell_spmm(ell.val, ell.col, X),
-                    lambda: spmv.ell_spmm_ref(ell.val, ell.col, X),
-                    lambda: torch.sparse.mm(csr, X2), 20, 5)
-                nnz = int((ell.val != 0).sum())
-                bound_ms, bound_by = bound(
-                    ell.val.numel() * (X.element_size() + 4)
-                    + (X.numel() + Yp.numel()) * X.element_size(),
-                    2 * nnz * c, dtype)
-                row = dict(case=which, dtype=str(dtype).split(".")[-1],
-                           shape=list(ell.val.shape), c=c, max_abs_err=err,
-                           max_abs_y=scale, library_abs_err=lib_err,
-                           **times, bound_ms=bound_ms, bound_by=bound_by)
-                print("ell_check", json.dumps(row), flush=True)
-                require(err <= tol * scale,
-                        f"ELL kernel error {err:.3e} > {tol} x {scale:.3e} "
-                        f"({which}, {dtype}, c={c})")
-                rows.append(row)
-        del be
+        for name in ("M", "Mt", "Msq", "B", "D", "Bt", "Dt"):
+            op = getattr(be, "_" + name)
+            layout = dict(op=name, dtype=str(op.val.dtype).split(".")[-1],
+                          padded_shape=list(op.ell.val.shape),
+                          padded_slots=op.ell.val.numel(), slots=op.slots,
+                          nnz=op.nnz, slots_per_nnz=op.slots / op.nnz,
+                          mean_slice_k=float(op.slice_k.double().mean()))
+            print("ell_layout", json.dumps(layout), flush=True)
+        require(be._Mt.slots <= 1.25 * be._Mt.nnz,
+                f"the sliced transpose stores {be._Mt.slots} slots for "
+                f"{be._Mt.nnz} nonzeros")
+        csrs = {}
+        for label, op, c, epi in ell_cases(be, lp, gen):
+            X = torch.randn(op.N, op.n, c, generator=gen, dtype=op.val.dtype,
+                            device=DEVICE)
+            Yk = spmv.ell_spmm(op, X, **epi)
+            torch.cuda.synchronize()
+            Yp = spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **epi)
+            scale = float(Yp.abs().amax())
+            err = float((Yk - Yp).abs().amax())
+            row = dict(case=label, op=op.name,
+                       dtype=str(op.val.dtype).split(".")[-1],
+                       shape=list(op.ell.val.shape), c=c, slots=op.slots,
+                       nnz=op.nnz, epilogue=sorted(epi), max_abs_err=err,
+                       max_abs_y=scale)
+            library = None
+            if epi:
+                Y0 = spmv.ell_spmm(op, X)
+                want = spmv._epilogue(Y0, epi.get("alpha"), epi.get("beta"),
+                                      epi.get("Z"))
+                row["epilogue_bitwise"] = bool(torch.equal(Yk, want))
+            else:
+                if op.name not in csrs:
+                    csrs[op.name] = block_csr(op.ell.val, op.ell.col, op.n)
+                csr, X2 = csrs[op.name], X.reshape(-1, c)
+                row["library_abs_err"] = float(
+                    (torch.sparse.mm(csr, X2).reshape(Yp.shape)
+                     - Yp).abs().amax())
+                library = partial(torch.sparse.mm, csr, X2)
+            row.update(timings(
+                lambda: spmv.ell_spmm(op, X, **epi),
+                lambda: spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **epi),
+                library, 20, 5))
+            row["bound_ms"], row["bound_by"] = ell_bound(op, X, Yp, epi)
+            print("ell_check", json.dumps(row), flush=True)
+            require(err <= tol * scale,
+                    f"ELL kernel error {err:.3e} > {tol} x {scale:.3e} "
+                    f"({label}, {dtype}, c={c})")
+            require(row.get("epilogue_bitwise", True),
+                    f"ELL epilogue differs from the separate operations "
+                    f"({label}, {dtype}, c={c})")
+            rows.append(row)
+        del be, csrs
     torch.cuda.empty_cache()
     return rows
 
@@ -455,6 +525,7 @@ def report(name, out, counts, ref_objective, rtol, n_vars, **extra):
                cg_readbacks=out["cg_readbacks"],
                cg_readbacks_per_iteration=out["cg_readbacks"] / max(it, 1),
                cg_calls=out["cg_calls"], cg_capped=out["cg_capped"],
+               ell_launches_by=out["ell_launches_by"],
                objective=out["objective"], reference_objective=ref_objective,
                objective_rel_diff=rel, **extra)
     print("main_path", json.dumps(row), flush=True)

@@ -90,8 +90,8 @@ def load() -> ctypes.CDLL:
         "ldl_inverse_f32": [vp, vp, vp, vp, ci, ci, vp],
         "ldl_inverse_nb": [ci],
         "ldl_inverse_launches": [ci],
-        "ell_spmm_f32": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
-        "ell_spmm_f64": [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp],
+        "ell_spmm_f32": [vp] * 10 + [ci] * 5 + [vp],
+        "ell_spmm_f64": [vp] * 10 + [ci] * 5 + [vp],
         "sweep_inverse_f32": [vp, vp, vp, ci, ci, vp],
         "sweep_inverse_max_dim": [],
     }

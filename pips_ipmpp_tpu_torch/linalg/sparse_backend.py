@@ -30,7 +30,8 @@ import torch
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
 from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
-from pips_ipmpp_tpu_torch.linalg.spmv import ell_kmajor, ell_mv, ell_mv_multi
+from pips_ipmpp_tpu_torch.linalg.spmv import (ell_mv, ell_mv_multi,
+                                              sell_from_ell)
 
 
 def batched_pcg(apply_A, B, dinv, max_iters: int, tol: float):
@@ -115,20 +116,22 @@ class SparseArrowBackend(ArrowBackend):
         super().__init__(lp, factor_dtype=factor_dtype, **kwargs)
 
     def _init_leaves(self):
-        """ELL operators, each stored K-major once: B, D and their
-        transposes in the working dtype for the residual products; the
-        merged M = [B; D], its transpose and its squared values (Jacobi
+        """ELL operators, each built once in the sliced layout
+        (`spmv.sell_from_ell`, the padded ELL kept beside it): B, D and
+        their transposes in the working dtype for the residual products;
+        the merged M = [B; D], its transpose and its squared values (Jacobi
         diagonal) in the factor dtype for the CG."""
         lp, fd = self.lp, self.factor_dtype
-        n, mE = lp.n, lp.mE
-        self._B, self._D = ell_kmajor(lp.B, n), ell_kmajor(lp.D, n)
-        self._Bt = ell_kmajor(lp.Bt, mE)
-        self._Dt = ell_kmajor(lp.Dt, lp.mI)
+        n, mE, mI = lp.n, lp.mE, lp.mI
+        self._B = sell_from_ell(lp.B, n, "B")
+        self._D = sell_from_ell(lp.D, n, "D")
+        self._Bt = sell_from_ell(lp.Bt, mE, "Bt")
+        self._Dt = sell_from_ell(lp.Dt, mI, "Dt")
         M = _stack_rows(lp.B, lp.D).astype(fd)
-        self._M = ell_kmajor(M, n)
-        self._Mt = ell_kmajor(_stack_cols(lp.Bt, lp.Dt, mE).astype(fd),
-                              mE + lp.mI)
-        self._Msq = ell_kmajor(Ell(M.val * M.val, M.col), n)
+        self._M = sell_from_ell(M, n, "M")
+        self._Mt = sell_from_ell(_stack_cols(lp.Bt, lp.Dt, mE).astype(fd),
+                                 mE + mI, "Mt")
+        self._Msq = sell_from_ell(Ell(M.val * M.val, M.col), n, "Msq")
 
     # ---- matvecs: the dense backend's structure, B/D terms as ELL -------
     def Ax(self, x: XVec) -> RVec:
@@ -170,9 +173,10 @@ class SparseArrowBackend(ArrowBackend):
         return torch.cat([dd.expand(lp.N, lp.mE), Om + dd], dim=1)
 
     def _neq_apply(self, Einv, Fd, V):
-        """Neq @ V = M E^{-1} M' V + F_d V, multi-RHS V [N, a, c]."""
-        t = Einv[:, :, None] * ell_mv_multi(self._Mt, V)
-        return ell_mv_multi(self._M, t) + Fd[:, :, None] * V
+        """Neq @ V = M E^{-1} M' V + F_d V, multi-RHS V [N, a, c]: two
+        products, the scalings in their epilogues."""
+        t = ell_mv_multi(self._Mt, V, alpha=Einv)
+        return ell_mv_multi(self._M, t, beta=Fd, Z=V)
 
     def _leaf_cg(self, Einv, Fd, dinv, Bc):
         return batched_pcg(lambda V: self._neq_apply(Einv, Fd, V),
@@ -190,7 +194,7 @@ class SparseArrowBackend(ArrowBackend):
         Einv_f = Einv.to(fd)
         Fd_f = self._Fd(Om, delta_d).to(fd)                   # [N, a]
         # Jacobi preconditioner: diag(Neq) = sum_n M^2 Einv + Fd
-        diag = ell_mv(self._Msq, Einv_f) + Fd_f
+        diag = ell_mv(self._Msq, Einv_f, z=Fd_f)
         dinv = 1.0 / diag
 
         # border right-hand sides (columns [x0 | yl | zl]), as in the
@@ -207,9 +211,11 @@ class SparseArrowBackend(ArrowBackend):
             torch.cat([lp.C, zpad.expand(lp.N, mI, mEl + mIl)], dim=2)],
             dim=1)                                            # [N, a, nS]
         EiRx_f = EiRx.to(fd)
-        rhsU = ell_mv_multi(self._M, EiRx_f) - Rm.to(fd)
+        # a - b is a + (-b) exactly, so the epilogues round as the
+        # subtractions do
+        rhsU = ell_mv_multi(self._M, EiRx_f, Z=-Rm.to(fd))
         Um, _iters = self._leaf_cg(Einv_f, Fd_f, dinv, rhsU)  # [N, a, nS]
-        Ux = EiRx_f - Einv_f[:, :, None] * ell_mv_multi(self._Mt, Um)
+        Ux = ell_mv_multi(self._Mt, Um, alpha=-Einv_f, Z=EiRx_f)
         Um, Ux = Um.to(dt), Ux.to(dt)
 
         contrib_x0 = (torch.einsum("imk,imS->kS", lp.A, Um[:, :mE])
@@ -231,8 +237,10 @@ class SparseArrowBackend(ArrowBackend):
         dt = rho_x.dtype
         Einv_f = fac.Einv.to(fd)
         Fd_f = self._Fd(fac.Om, fac.delta_d).to(fd)
-        t = ell_mv(self._M, (fac.Einv * rho_x).to(fd)) - rho_m.to(fd)
+        t = ell_mv(self._M, (fac.Einv * rho_x).to(fd), z=-rho_m.to(fd))
         gm, _iters = self._leaf_cg(Einv_f, Fd_f, fac.Ninv, t[:, :, None])
         gm = gm[:, :, 0]
+        # the product is in the factor dtype, the rest in the working
+        # dtype: an epilogue would round it in the factor dtype
         gx = fac.Einv * (rho_x - ell_mv(self._Mt, gm).to(dt))
         return gx, gm.to(dt)

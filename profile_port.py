@@ -2,6 +2,7 @@
 
     python3 profile_port.py [path ...] [--window W] [--cg-iters K]
     python3 profile_port.py --ldl [--ldl-against DIR]
+    python3 profile_port.py --ell [--ell-against DIR]
 
 Paths are `chip_smoke.paths()`: `flagship`, `bigleaf`, `sparse_f32`,
 `sparse_f64` and `sweep` (default: every path), each solved by the
@@ -15,11 +16,12 @@ that ends in `torch.cuda.synchronize()`), and once more with
 from the middle of the solve; `--window 0` makes the timed solve the only
 one.  Per path one JSON line: iterations, status, objective, solve
 seconds, iterations per second, the hand-written kernels' launch counts
-and the CG's read-backs, calls and capped calls of the timed solve; for the
-window, kernel launches (`*LaunchKernel*` runtime calls) and device time
-per iteration, the busy share (device time over the window's host-clock
-time) and the kernels that took the most device time; and the
-iterations' mu, residual, step lengths and Gondzio correctors.  The last
+(the ELL kernel's also per operator and width) and the CG's read-backs,
+calls and capped calls of the timed solve; for the window, kernel
+launches (`*LaunchKernel*` runtime calls) and device time per iteration,
+the busy share (device time over the window's host-clock time) and the
+kernels that took the most device time; and the iterations' mu,
+residual, step lengths and Gondzio correctors.  The last
 line is the card's name and power limit.
 
 `--ldl` times the LDL kernel instead, at `chip_smoke.LDL_SHAPES`: per
@@ -31,6 +33,18 @@ checkout, for example the parent commit unpacked with `git archive`) with
 the same flags, gives its error too, and times the two in turns, other,
 this, this, other; a shape the other kernel refuses shows its CUDA error
 instead.
+
+`--ell` times the ELL kernel instead, on every product the sparse
+backend launches at the 8 x 8192 instance (`chip_smoke.ell_cases`, f32
+and f64): per case one JSON line with its device time per call, its
+error against the plain version and its bound (`chip_smoke.ell_bound`).
+`--ell-against DIR` also builds `DIR/pips_ipmpp_tpu_torch/csrc/ell_spmm.cu`
+alone and times the two in turns, other, this, this, other.  A source
+that reads the padded K-major ELL (the kernel before the sliced layout)
+gets K-major copies of the padded operators, and its epilogue cases run
+as its product followed by the separate torch operations, as its
+backend ran them; a source that reads the sliced layout gets this tree's
+operators.
 """
 from __future__ import annotations
 
@@ -50,8 +64,9 @@ import chip_smoke as cs
 from pips_ipmpp_tpu_torch import PIPSIPMppTorchInterface, _build
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
-from pips_ipmpp_tpu_torch.linalg import ldl
-from pips_ipmpp_tpu_torch.linalg.sparse_backend import batched_pcg
+from pips_ipmpp_tpu_torch.linalg import ldl, spmv
+from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
+                                                        batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
 
 
@@ -89,6 +104,8 @@ def profile(name, make, window, cg_iters):
                cg_readbacks=batched_pcg.readbacks,
                cg_readbacks_per_iteration=batched_pcg.readbacks / max(it, 1),
                cg_calls=batched_pcg.calls, cg_capped=batched_pcg.capped,
+               ell_launches_by={f"{op}/c={c}": v for (op, c), v in sorted(
+                   spmv.ell_spmm.launches_by.items())},
                history=[[h.mu, h.residual_norm, h.alpha_primal,
                          h.alpha_dual, h.n_gondzio] for h in res.history])
     if window:
@@ -136,18 +153,23 @@ def profile_window(lp, solver, it, window):
                             for e in top])
 
 
-def other_ldl(root):
-    """`ldl_inverse_f32` of another checkout's source, built alone with
-    this tree's nvcc flags into this tree's build directory."""
-    src = (Path(root) / "pips_ipmpp_tpu_torch" / "csrc"
-           / "ldl_inverse.cu").resolve()
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = _build.BUILD_DIR / f"libldl_other_{tag}.so"
+def _other_lib(root, source, stem):
+    """The shared library of another checkout's `csrc/<source>`, built
+    alone with this tree's nvcc flags into this tree's build directory."""
+    src = (Path(root) / "pips_ipmpp_tpu_torch" / "csrc" / source).resolve()
+    text = src.read_bytes()
+    tag = hashlib.sha256(text).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"lib{stem}_other_{tag}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         subprocess.run([_build._nvcc(), *_build._FLAGS, "-shared", "-o",
                         str(out), str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out)).ldl_inverse_f32
+    return ctypes.CDLL(str(out)), text
+
+
+def other_ldl(root):
+    """`ldl_inverse_f32` of another checkout's source."""
+    fn = _other_lib(root, "ldl_inverse.cu", "ldl")[0].ldl_inverse_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, ci, ci, vp]
     fn.restype = ci
@@ -212,6 +234,94 @@ def ldl_table(against):
         torch.cuda.empty_cache()
 
 
+def other_ell(root):
+    """(`ell_spmm_f32`, `ell_spmm_f64`, sliced) of another checkout's ELL
+    kernel; `sliced` says whether it reads the sliced layout or the padded
+    K-major one."""
+    lib, text = _other_lib(root, "ell_spmm.cu", "ell")
+    sliced = b"slice_ptr" in text
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fns = []
+    for name in ("ell_spmm_f32", "ell_spmm_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([vp] * 10 + [ci] * 5 + [vp] if sliced
+                       else [vp] * 4 + [ci] * 5 + [vp])
+        fn.restype = ci
+        fns.append(fn)
+    return fns[0], fns[1], sliced
+
+
+def _kmajor(t):
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def ell_table(against):
+    """The ELL kernel's device time per call on every product of the
+    sparse backend at the 8 x 8192 instance, and, given another checkout,
+    that one's in turns."""
+    other = other_ell(against) if against else None
+    lp = make_scaler(ScalerType.EQUILIBRIUM).scale(
+        cs.sparse_lp().to(cs.DEVICE))
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(1)
+    reps = 50
+    for dtype in (torch.float32, torch.float64):
+        be = SparseArrowBackend(lp.astype(torch.float64), factor_dtype=dtype)
+        padded = {}
+        for label, op, c, epi in cs.ell_cases(be, lp, gen):
+            X = torch.randn(op.N, op.n, c, generator=gen, dtype=op.val.dtype,
+                            device=cs.DEVICE)
+            Yp = spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **epi)
+
+            def err(Y):
+                return float((Y - Yp).abs().amax() / Yp.abs().amax())
+
+            this = partial(spmv.ell_spmm, op, X, **epi)
+            row = dict(case=label, op=op.name,
+                       dtype=str(op.val.dtype).split(".")[-1], c=c,
+                       epilogue=sorted(epi), padded_shape=list(
+                           op.ell.val.shape), slots=op.slots, nnz=op.nnz,
+                       bound_ms=cs.ell_bound(op, X, Yp, epi)[0],
+                       this_rel_err=err(this()))
+            if other is None:
+                row["this_ms"] = [cs.device_ms(this, reps)]
+                print("ell_time", json.dumps(row), flush=True)
+                continue
+            fn = other[0] if op.val.dtype == torch.float32 else other[1]
+            stream = torch.cuda.current_stream().cuda_stream
+            Y = torch.empty_like(Yp)
+            if other[2]:
+                ptr = spmv._ptr
+                args = (op.val.data_ptr(), op.col.data_ptr(),
+                        op.slice_ptr.data_ptr(), op.slice_k.data_ptr(),
+                        op.row.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                        ptr(epi.get("alpha")), ptr(epi.get("beta")),
+                        ptr(epi.get("Z")), op.N, op.S, op.m, op.n, c,
+                        stream)
+
+                def run_other():
+                    cs.require(fn(*args) == 0, "other ELL kernel failed")
+                    return Y
+            else:
+                if op.name not in padded:
+                    padded[op.name] = (_kmajor(op.ell.val),
+                                       _kmajor(op.ell.col))
+                val, col = padded[op.name]
+                args = (val.data_ptr(), col.data_ptr(), X.data_ptr(),
+                        Y.data_ptr(), op.N, op.m, op.ell.K, op.n, c, stream)
+
+                def run_other():
+                    cs.require(fn(*args) == 0, "other ELL kernel failed")
+                    return spmv._epilogue(Y, epi.get("alpha"),
+                                          epi.get("beta"), epi.get("Z"))
+            row["other_rel_err"] = err(run_other())
+            t = [cs.device_ms(f, reps)
+                 for f in (run_other, this, this, run_other)]
+            row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
+            print("ell_time", json.dumps(row), flush=True)
+        del be, padded
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     table = cs.paths()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -224,6 +334,11 @@ def main(argv):
                     help="time the LDL kernel at chip_smoke.LDL_SHAPES")
     ap.add_argument("--ldl-against", metavar="DIR", default=None,
                     help="with --ldl: also time DIR's LDL kernel, in turns")
+    ap.add_argument("--ell", action="store_true",
+                    help="time the ELL kernel on the sparse backend's "
+                         "products at the 8 x 8192 instance")
+    ap.add_argument("--ell-against", metavar="DIR", default=None,
+                    help="with --ell: also time DIR's ELL kernel, in turns")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.paths) - set(table))
     if unknown:
@@ -232,7 +347,9 @@ def main(argv):
     pin_float32_precision()
     if args.ldl:
         ldl_table(args.ldl_against)
-    for name in args.paths or ([] if args.ldl else list(table)):
+    if args.ell:
+        ell_table(args.ell_against)
+    for name in args.paths or ([] if args.ldl or args.ell else list(table)):
         profile(name, table[name], args.window, args.cg_iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -96,29 +96,52 @@ def test_duplicate_and_zero_entries():
 
 
 def test_kmajor_layout_and_range_check():
+    """The sliced layout stores each slice K-major (slot k of its 32 rows
+    contiguous), gives the padded ELL's product, and checks column ids
+    once at build."""
     rng = np.random.default_rng(4)
     col, val = _random_ell(rng, 2, 33, 20, 4)
     ell = Ell(torch.from_numpy(val), torch.from_numpy(col))
-    km = spmv.ell_kmajor(ell, 20)
-    assert km.val.transpose(1, 2).is_contiguous()
-    assert km.col.dtype == torch.int32
+    op = spmv.sell_from_ell(ell, 20)
+    assert op.col.dtype == torch.int32 and op.slice_ptr.dtype == torch.int64
+    assert op.S == 2 and op.slice_k.shape == (4,)
+    for g in range(4):
+        p0, k = int(op.slice_ptr[g]), int(op.slice_k[g])
+        rows = op.row[32 * g:32 * g + 32].long()
+        b = g // 2
+        for i in np.flatnonzero(rows.numpy() >= 0)[:5]:
+            slots = op.val[p0 + i:p0 + 32 * k:32]
+            want = val[b, int(rows[i])]
+            np.testing.assert_array_equal(slots.numpy()[slots.numpy() != 0],
+                                          want[want != 0])
     X = torch.from_numpy(rng.standard_normal((2, 20, 3)))
-    np.testing.assert_array_equal(spmv.ell_mv_multi(km, X).numpy(),
+    np.testing.assert_array_equal(spmv.ell_mv_multi(op, X).numpy(),
                                   spmv.ell_mv_multi(ell, X).numpy())
     with pytest.raises(ValueError):
-        spmv.ell_kmajor(ell, 19)                 # a column id is 19
+        spmv.sell_from_ell(ell, 19)                 # a column id is 19
 
 
 def test_wrapper_checks_inputs():
     val = torch.zeros(1, 2, 3)
     X = torch.zeros(1, 4, 2)
+    i32 = torch.zeros(1, 2, 3, dtype=torch.int32)
     with pytest.raises(TypeError):
-        spmv.ell_spmm(val, torch.zeros(1, 2, 3, dtype=torch.int64), X)
+        spmv.ell_spmm(Ell(val, torch.zeros(1, 2, 3, dtype=torch.int64)), X)
     with pytest.raises(TypeError):
-        spmv.ell_spmm(val, torch.zeros(1, 2, 3, dtype=torch.int32),
-                      X.double())
+        spmv.ell_spmm(Ell(val, i32), X.double())
     with pytest.raises(ValueError):
-        spmv.ell_spmm(val, torch.zeros(1, 2, 2, dtype=torch.int32), X)
+        spmv.ell_spmm(Ell(val, torch.zeros(1, 2, 2, dtype=torch.int32)), X)
+    op = spmv.sell_from_ell(Ell(val, i32), 4)
+    with pytest.raises(ValueError):                 # X rows != n
+        spmv.ell_spmm(op, torch.zeros(1, 5, 2))
+    with pytest.raises(ValueError):                 # alpha not [N, m]
+        spmv.ell_spmm(op, X, alpha=torch.ones(1, 3))
+    with pytest.raises(ValueError):                 # Z not [N, m, c]
+        spmv.ell_spmm(op, X, Z=torch.ones(1, 2, 3))
+    with pytest.raises(ValueError):                 # beta without Z
+        spmv.ell_spmm(op, X, beta=torch.ones(1, 2))
+    with pytest.raises(TypeError):                  # alpha's dtype
+        spmv.ell_spmm(op, X, alpha=torch.ones(1, 2, dtype=torch.float64))
 
 
 def test_cpu_tensor_never_counts_a_launch():
@@ -128,9 +151,11 @@ def test_cpu_tensor_never_counts_a_launch():
     ell = Ell(torch.from_numpy(val), torch.from_numpy(col))
     spmv.ell_mv(ell, torch.ones(2, 8, dtype=torch.float64))
     spmv.ell_sq_diag(ell, torch.ones(2, 8, dtype=torch.float64))
-    spmv.ell_mv_multi(ell.astype(torch.float32),
-                      torch.ones(2, 8, 4, dtype=torch.float32))
+    op = spmv.sell_from_ell(ell.astype(torch.float32), 8, "op")
+    spmv.ell_mv_multi(op, torch.ones(2, 8, 4, dtype=torch.float32),
+                      alpha=torch.ones(2, 8))
     assert spmv.ell_spmm.launches == before
+    assert ("op", 4) not in spmv.ell_spmm.launches_by
 
 
 @pytest.mark.gpu
@@ -140,16 +165,184 @@ def test_cuda_kernel_matches_plain():
     rng = np.random.default_rng(6)
     col, val = _random_ell(rng, 3, 300, 257, 7)
     ell = Ell(torch.from_numpy(val), torch.from_numpy(col)).to("cuda")
-    for layout in (ell, spmv.ell_kmajor(ell, 257)):
-        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            lay = layout.astype(dtype)
-            for c in (1, 24, 40):
-                X = torch.from_numpy(rng.standard_normal((3, 257, c))).to(
-                    "cuda", dtype)
-                before = spmv.ell_spmm.launches
-                Yk = spmv.ell_spmm(lay.val, lay.col, X)
-                torch.cuda.synchronize()
-                assert spmv.ell_spmm.launches == before + 1
-                Yp = spmv.ell_spmm_ref(lay.val, lay.col, X)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        op = spmv.sell_from_ell(ell.astype(dtype), 257, "t")
+        for c in (1, 3, 24, 40):
+            X = torch.from_numpy(rng.standard_normal((3, 257, c))).to(
+                "cuda", dtype)
+            before = spmv.ell_spmm.launches
+            Yk = spmv.ell_spmm(op, X)
+            torch.cuda.synchronize()
+            assert spmv.ell_spmm.launches == before + 1
+            Yp = spmv.ell_spmm_ref(op.ell.val, op.ell.col, X)
+            err = float((Yk - Yp).abs().max())
+            assert err <= tol * float(Yp.abs().max()), (dtype, c, err)
+
+
+# ---- the sliced layout (SELL-C-sigma) ----------------------------------------
+def _ragged_ell(case, rng):
+    """[2, m, K] padded ELLs with the raggedness a sliced layout must
+    handle; the nonzeros of some rows sit between padded slots, as in a
+    transpose stacked from two halves."""
+    N, n = 2, 50
+    m = {"m_not_multiple": 45}.get(case, 96)
+    K = 40 if case == "one_long_row" else 6
+    counts = rng.integers(1, 7, size=(N, m))
+    if case == "empty_rows":
+        counts[:, ::3] = 0
+    elif case == "all_padding_slice":
+        counts[:, 32:64] = 0                     # one slice's worth of rows
+    elif case == "one_long_row":
+        counts = rng.integers(1, 4, size=(N, m))
+        counts[1, 70] = 40
+    elif case == "equal_counts":
+        counts[:] = 5
+    col = np.zeros((N, m, K), np.int32)
+    val = np.zeros((N, m, K))
+    for b in range(N):
+        for r in range(m):
+            k = counts[b, r]
+            slots = np.sort(rng.choice(K, size=k, replace=False)) \
+                if r % 2 else np.arange(k)
+            col[b, r, slots] = rng.choice(n, size=k, replace=False)
+            val[b, r, slots] = rng.standard_normal(k)
+    return Ell(torch.from_numpy(val), torch.from_numpy(col)), n, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("c", [1, 3, 24])
+@pytest.mark.parametrize("case", ["empty_rows", "all_padding_slice",
+                                  "one_long_row", "m_not_multiple",
+                                  "equal_counts"])
+def test_sell_layout_matches_padded_plain(case, c, dtype):
+    """The plain version over the slices equals the padded ELL's plain
+    version (f64: 1e-12 of max|Y|, f32: 1e-5; summation order only); each
+    slice stores its longest row's slots."""
+    rng = np.random.default_rng(7)
+    ell, n, counts = _ragged_ell(case, rng)
+    ell = ell.astype(dtype)
+    X = torch.from_numpy(rng.standard_normal((2, n, c))).to(dtype)
+    want = spmv.ell_spmm_ref(ell.val, ell.col, X)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    op = spmv.sell_from_ell(ell, n)
+    got = spmv.sell_spmm_ref(op, X)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    assert op.nnz == counts.sum()
+    assert op.slots == 32 * int(op.slice_k.sum())
+    assert op.slice_ptr[-1] == op.slots
+    rows = op.row.view(2, -1)
+    for b in range(2):              # a permutation of the block's rows
+        r = rows[b][rows[b] >= 0]
+        assert sorted(r.tolist()) == list(range(ell.m))
+    if case in ("all_padding_slice", "empty_rows"):
+        assert int((op.slice_k == 0).sum()) >= 1
+    if case == "equal_counts":
+        assert torch.equal(rows, torch.arange(96).expand(2, 96))
+        assert op.slots == op.nnz
+    if case == "one_long_row":
+        assert int(op.slice_k.max()) == 40
+        assert op.slots < ell.val.numel() / 4
+
+
+_EPILOGUES = {
+    "alpha": lambda a, b, Z: dict(alpha=a),
+    "beta_z": lambda a, b, Z: dict(beta=b, Z=Z),
+    "z": lambda a, b, Z: dict(Z=Z),
+    "alpha_beta_z": lambda a, b, Z: dict(alpha=a, beta=b, Z=Z),
+}
+
+
+@pytest.mark.parametrize("form", list(_EPILOGUES))
+def test_plain_epilogue_is_the_separate_expression_bitwise(form):
+    """The plain versions' epilogue is alpha * Y + beta * Z computed as
+    separate torch operations, to the bit, on both layouts."""
+    rng = np.random.default_rng(8)
+    ell, n, _ = _ragged_ell("empty_rows", rng)
+    ell = ell.astype(torch.float32)
+    op = spmv.sell_from_ell(ell, n)
+    X = torch.from_numpy(rng.standard_normal((2, n, 5))).float()
+    a, b = (torch.from_numpy(rng.uniform(-2, 2, (2, ell.m))).float()
+            for _ in range(2))
+    Z = torch.from_numpy(rng.standard_normal((2, ell.m, 5))).float()
+    kw = _EPILOGUES[form](a, b, Z)
+    for plain in (lambda **e: spmv.ell_spmm(op, X, **e),
+                  lambda **e: spmv.sell_spmm_ref(op, X, **e)):
+        Y = plain()
+        want = Y if "alpha" not in kw else a[..., None] * Y
+        if "Z" in kw:
+            want = want + (Z if "beta" not in kw else b[..., None] * Z)
+        assert torch.equal(plain(**kw), want)
+
+
+def test_backend_folds_its_scalings_bitwise():
+    """The sparse backend's epilogue calls give, to the bit, the products
+    followed by the separate scalings and subtractions they replace."""
+    from pips_ipmpp_tpu_torch.io.synthetic import random_sparse_arrowhead_lp
+    from pips_ipmpp_tpu_torch.linalg.sparse_backend import SparseArrowBackend
+
+    lp = random_sparse_arrowhead_lp(5, N=2, n=48, mE=24, mI=24,
+                                    nnz_per_row=4, n0=3, m0E=1, m0I=1,
+                                    mEl=1, mIl=1)
+    be = SparseArrowBackend(lp, factor_dtype=torch.float32)
+    rng = np.random.default_rng(9)
+    f32 = lambda *s: torch.from_numpy(rng.standard_normal(s)).float()  # noqa
+    Einv, Fd = f32(2, 48).abs(), f32(2, 48).abs()
+    V = f32(2, 48, 5)
+    t = Einv[:, :, None] * spmv.ell_mv_multi(be._Mt.ell, V)
+    assert torch.equal(be._neq_apply(Einv, Fd, V),
+                       spmv.ell_mv_multi(be._M.ell, t) + Fd[:, :, None] * V)
+    R, E = f32(2, 48, 5), f32(2, 48, 5)
+    assert torch.equal(spmv.ell_mv_multi(be._M, E, Z=-R),
+                       spmv.ell_mv_multi(be._M.ell, E) - R)
+    assert torch.equal(spmv.ell_mv_multi(be._Mt, V, alpha=-Einv, Z=E),
+                       E - Einv[:, :, None] * spmv.ell_mv_multi(be._Mt.ell,
+                                                                V))
+    assert torch.equal(spmv.ell_mv(be._Msq, Einv, z=Fd),
+                       spmv.ell_mv(be._Msq.ell, Einv) + Fd)
+
+
+def test_sliced_transpose_stores_at_most_125_slots_per_nonzero():
+    """The merged transpose [Bt | Dt] pads each half to its own longest
+    row (K = 30 for 10 nonzeros per row on average); its slices store at
+    most 1.25 slots per nonzero."""
+    from pips_ipmpp_tpu_torch.io.synthetic import random_sparse_arrowhead_lp
+    from pips_ipmpp_tpu_torch.linalg.sparse_backend import _stack_cols
+
+    lp = random_sparse_arrowhead_lp(0, N=2, n=2048, mE=1024, mI=1024,
+                                    nnz_per_row=10)
+    Mt = _stack_cols(lp.Bt, lp.Dt, lp.mE)
+    op = spmv.sell_from_ell(Mt, lp.mE + lp.mI)
+    assert op.nnz == int((Mt.val != 0).sum())
+    assert Mt.val.numel() >= 2.5 * op.nnz
+    assert op.slots <= 1.25 * op.nnz, op.slots / op.nnz
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_epilogue_matches_plain():
+    """The kernel's epilogue against the plain version (f32 1e-5, f64
+    1e-12 of max|Y|) and, to the bit, against the kernel's own product
+    followed by the separate torch operations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rng = np.random.default_rng(10)
+    ell, n, _ = _ragged_ell("one_long_row", rng)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        op = spmv.sell_from_ell(ell.astype(dtype).to("cuda"), n)
+        for c in (1, 3, 24):
+            g = lambda *s: torch.from_numpy(  # noqa: E731
+                rng.standard_normal(s)).to("cuda", dtype)
+            X, a, b, Z = g(2, n, c), g(2, ell.m), g(2, ell.m), g(2, ell.m, c)
+            for make in _EPILOGUES.values():
+                kw = make(a, b, Z)
+                Yk = spmv.ell_spmm(op, X, **kw)
+                Y0 = spmv.ell_spmm(op, X)
+                want = Y0 if "alpha" not in kw else a[..., None] * Y0
+                if "Z" in kw:
+                    want = want + (Z if "beta" not in kw
+                                   else b[..., None] * Z)
+                assert torch.equal(Yk, want), (dtype, c, sorted(kw))
+                Yp = spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **kw)
                 err = float((Yk - Yp).abs().max())
                 assert err <= tol * float(Yp.abs().max()), (dtype, c, err)
