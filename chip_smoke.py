@@ -64,10 +64,13 @@ BIGLEAF = dict(N=64, n=1024, mE=512, mI=512, n0=64, m0E=32, m0I=32, mEl=32,
 # path's root (n0 = 16 of 32), and an SPD edge past any shared-memory cap
 LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
               (1, 192, 64), (1, 480, 64), (1, 32, 16), (2, 2048, 2048)]
-# the sweep kernel at the flagship leaf (SPD) and root (quasidefinite), and
-# at the sweep solve's leaves (a = 2) and root (a = 3, n0 = 1), unpadded so
-# that the wrapper's identity padding to 16 runs too
-SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1)]
+# the sweep kernel at the flagship leaf (SPD) and root (quasidefinite), at
+# the sweep solve's leaves (a = 2) and root (a = 3, n0 = 1), unpadded so
+# that the wrapper's identity padding of an odd edge runs too, at the big
+# leaf (SPD) and at an SPD edge past the one-CTA kernel's shared-memory cap
+# of 1701
+SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
+                (64, 1024, 1024), (2, 2048, 2048)]
 # the JAX package's reference-scale sparse acceptance instance
 # (tests/test_sparse.py:186-201) and its HiGHS f64 oracle objective
 SPARSE = dict(N=8, n=8192, mE=4096, mI=4096, nnz_per_row=10, n0=16, m0E=4,
@@ -109,16 +112,21 @@ def device_ms(fn, reps):
     time of every kernel, copy and fill that `reps` runs launch, over
     `reps`, after one warm-up run.  Host time between launches is not in
     it, so a kernel of a few microseconds is not hidden behind its
-    launch."""
+    launch.  The profiler has read no device time at all for runs of one
+    ~2 µs kernel: then it measures again over 10 x `reps` runs, and gives
+    None (not measured) if it still reads none."""
     fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for n in (reps, 10 * reps):
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / reps
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / n
+    return None
 
 
 def timings(kernel, plain, library, reps, plain_reps):
@@ -373,10 +381,17 @@ def check_ell_kernel(slp):
     return rows
 
 
+def sweep_bound(B, a):
+    """The sweep's bound: A in, X and d out, and a^3 flops per matrix, the
+    symmetric rank-nb update's one triangle once per panel."""
+    return bound((2 * B * a * a + B * a) * 4, B * a ** 3, torch.float32)
+
+
 def check_sweep_kernel():
     """The sweep kernel and its plain f32 version against an f64
     torch.linalg.inv: error <= 4 x the plain f32 error + 1e-6, and the
     pivot signs of the quasidefinite inertia."""
+    lib = _build.load()
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     rows = []
     for B, a, n_pos in SWEEP_SHAPES:
@@ -392,18 +407,19 @@ def check_sweep_kernel():
         times = timings(lambda: sweep.sweep_inverse(A32),
                         lambda: sweep.sweep_inverse_ref(A32),
                         lambda: torch.linalg.inv(A32), 10, 3)
-        # the rank-16 update of the full matrix once per panel
-        bound_ms, bound_by = bound((2 * B * a * a + B * a) * 4,
-                                   B * 2 * a ** 3, torch.float32)
+        bound_ms, bound_by = sweep_bound(B, a)
         row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
                    plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
                    inertia_ok=ok, **times, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   bound_by=bound_by, cuda_launches_per_call=(
+                       lib.sweep_inverse_launches(sweep.padded_edge(a))))
         print("sweep_check", json.dumps(row), flush=True)
         require(err_k <= 4.0 * err_p + 1e-6,
                 f"sweep kernel error {err_k:.3e} > 4 x plain {err_p:.3e} "
                 f"+ 1e-6 at {[B, a, a]}")
         require(ok, f"sweep kernel pivot signs wrong at {[B, a, a]}")
+        del A, A32, ref_inv, Ik, dk, Ip
+        torch.cuda.empty_cache()
         rows.append(row)
     return rows
 

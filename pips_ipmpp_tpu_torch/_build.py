@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-The sources under `csrc/` have plain C interfaces.  One `nvcc` per source,
-all started together, compiles them for Hopper (`sm_90a`); one more links
-the objects into a shared library named by the sources' content hash,
-`build/libpips_kernels_<hash>.so` beside this file, with the compilers'
-register and shared-memory report (`-Xptxas -v`) beside it as `.log`.  A
-build or load failure raises; nothing falls back.
+The sources under `csrc/` have plain C interfaces (the header
+`ffma_tile.cuh` holds the FFMA tiles two of them share).  One `nvcc` per
+source, all started together, compiles them for Hopper (`sm_90a`); one
+more links the objects into a shared library named by the content hash of
+the sources and the header, `build/libpips_kernels_<hash>.so` beside this
+file, with the compilers' register and shared-memory report (`-Xptxas -v`)
+beside it as `.log`.  A build or load failure raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 _SOURCES = tuple(_HERE / "csrc" / name for name in
                  ("ldl_inverse.cu", "ell_spmm.cu", "sweep_inverse.cu"))
+_HEADERS = (_HERE / "csrc" / "ffma_tile.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_DIR = _HERE / "build"
@@ -39,7 +41,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         h.update(src.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"libpips_kernels_{h.hexdigest()[:16]}.so"
@@ -92,8 +94,9 @@ def load() -> ctypes.CDLL:
         "ldl_inverse_launches": [ci],
         "ell_spmm_f32": [vp] * 10 + [ci] * 5 + [vp],
         "ell_spmm_f64": [vp] * 10 + [ci] * 5 + [vp],
-        "sweep_inverse_f32": [vp, vp, vp, ci, ci, vp],
-        "sweep_inverse_max_dim": [],
+        "sweep_inverse_f32": [vp, vp, vp, vp, ci, ci, vp],
+        "sweep_inverse_launches": [ci],
+        "sweep_inverse_workspace": [ci],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -31,12 +31,12 @@
 //                triangular tile index in closed form);
 //           (d)  X[k1:, :k1] -= L21 X[k0:k1, :k1], the elimination applied
 //                to the identity.
-// The tile parts are GEMMs of depth nb: each CTA stages its two operands
-// in shared memory in two slices of depth 32, with 16-byte cp.async
-// (4-byte when a is not a multiple of 4): the second slice lands while the
-// first is used, and an update's old values are loaded into registers
-// under both.  256 threads each keep a 4 x 4 tile of f32 sums and read
-// their operands as float4.  Grids are (tiles x batch): thousands of CTAs
+// The tile parts are GEMMs of depth nb (ffma_tile.cuh): each CTA stages
+// its two operands in shared memory in two slices of depth 32, with 16-byte
+// cp.async (4-byte when a is not a multiple of 4): the second slice lands
+// while the first is used, and an update's old values are loaded into
+// registers under both.  256 threads each keep a 4 x 4 tile of f32 sums
+// and read their operands as float4.  Grids are (tiles x batch): thousands of CTAs
 // at the big leaves, several at a B = 1 root.
 // Shared memory holds the two slices of both operands (36 KB) and the
 // diagonal kernel's published rows, never a full-height panel, so no edge
@@ -50,175 +50,13 @@
 // per use, 185+ registers, one CTA per SM), and nb = 128 (1% faster at
 // a = 1024, slower at a = 2048 and at the roots: the update is not bound
 // by its traffic).
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "ffma_tile.cuh"
 
 namespace {
 
-constexpr int kNb = 64;            // panel width: the rank of the updates
 constexpr int kOneBlock = 128;     // a <= this: one diagonal-block launch
-constexpr int kTile = 64;          // output tile edge of parts (b)-(d)
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kSlice = 32;         // depth of one cp.async stage
-constexpr int kLds = kSlice + 4;   // stride of [row][depth] slots: float4
-                                   // reads of 8 rows hit 32 banks
-constexpr int kLdsKN = kTile + 4;  // stride of [depth][column] slots
-constexpr int kSlot = kTile * kLds;  // floats per slot (>= kSlice * kLdsKN)
-constexpr int kMaxGridY = 65535;
-static_assert(kSlice * kLdsKN <= kSlot, "a [depth][column] slot fits");
-
-__device__ __forceinline__ void cp_async(float* smem, const float* gmem,
-                                         int bytes, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? bytes : 0;  // 0: fill the destination with zeros
-  if (bytes == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy rows [r0, r0 + R) x columns [c0, c0 + C) of the row-major block g
-// (leading dimension ld) into sm (row stride LD) from its origin; rows >=
-// nrows and columns >= ncols (of g) read as zeros.  V floats per copy.
-template <int V, int R, int C, int LD>
-__device__ __forceinline__ void stage(float* sm, const float* g, int ld,
-                                      int r0, int c0, int nrows, int ncols) {
-  constexpr int per_row = C / V;
-  for (int t = threadIdx.x; t < R * per_row; t += kThreads) {
-    const int r = t / per_row, c = (t % per_row) * V;
-    const bool ok = r0 + r < nrows && c0 + c < ncols;
-    cp_async(sm + r * LD + c,
-             ok ? g + static_cast<size_t>(r0 + r) * ld + c0 + c : g, V * 4,
-             ok);
-  }
-}
-// Scale column c of the chunks that `stage` (same arguments) gave this
-// thread by d[c0 + c]: after cp.async.wait_group they are visible to it.
-template <int V, int R, int C, int LD>
-__device__ __forceinline__ void scale_cols(float* sm, const float* d, int c0,
-                                           int ncols) {
-  constexpr int per_row = C / V;
-  for (int t = threadIdx.x; t < R * per_row; t += kThreads) {
-    const int r = t / per_row, c = (t % per_row) * V;
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (c0 + c + v < ncols) sm[r * LD + c + v] *= d[c0 + c + v];
-  }
-}
-
-// acc[r][c] += sum over the kSlice depths of a slot of
-//   As[row r][kk] * Bs[col c][kk]   (NK: B holds rows of the column index)
-//   As[row r][kk] * Bs[kk][col c]   (KN: B holds rows of the depth index)
-// for rows ty + 16 r and columns tx + 16 c (NK) or 4 tx + c (KN).
-template <bool kKN>
-__device__ __forceinline__ void mma_slice(float (&acc)[4][4], const float* As,
-                                          const float* Bs) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 2
-  for (int kk = 0; kk < kSlice; kk += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      av[r] = *reinterpret_cast<const float4*>(As + (ty + 16 * r) * kLds + kk);
-    if (kKN) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        bv[q] =
-            *reinterpret_cast<const float4*>(Bs + (kk + q) * kLdsKN + 4 * tx);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float a4[4] = {av[r].x, av[r].y, av[r].z, av[r].w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          acc[r][0] = fmaf(a4[q], bv[q].x, acc[r][0]);
-          acc[r][1] = fmaf(a4[q], bv[q].y, acc[r][1]);
-          acc[r][2] = fmaf(a4[q], bv[q].z, acc[r][2]);
-          acc[r][3] = fmaf(a4[q], bv[q].w, acc[r][3]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        bv[c] =
-            *reinterpret_cast<const float4*>(Bs + (tx + 16 * c) * kLds + kk);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float s = acc[r][c];
-          s = fmaf(av[r].x, bv[c].x, s);
-          s = fmaf(av[r].y, bv[c].y, s);
-          s = fmaf(av[r].z, bv[c].z, s);
-          s = fmaf(av[r].w, bv[c].w, s);
-          acc[r][c] = s;
-        }
-    }
-  }
-}
-
-__device__ __forceinline__ int out_row(int r) {
-  return threadIdx.x / 16 + 16 * r;
-}
-__device__ __forceinline__ int out_col(bool kn, int c) {
-  const int tx = threadIdx.x % 16;
-  return kn ? 4 * tx + c : tx + 16 * c;
-}
-
-// One 64 x 64 output tile of depth k_valid <= kNb:
-//   acc = Ag[rows, :k] . (NK: Bg[cols, :k]^T  |  KN: Bg[:k, cols])
-// Ag, Bg point at the tiles' first elements; an_rows / b_rows / b_cols
-// bound the valid part (the rest reads as zeros).  If dscale is given, B's
-// depth index is scaled by it (NK only).  The depth comes in two cp.async
-// stages of kSlice, one slot of As and Bs each: the second stage lands
-// while the first is used.
-template <int V, bool kKN>
-__device__ __forceinline__ void tile_gemm(float (&acc)[4][4], float* As,
-                                          float* Bs, const float* Ag,
-                                          const float* Bg, int ld,
-                                          int an_rows, int b_rows, int b_cols,
-                                          int k_valid, const float* dscale) {
-  static_assert(kNb == 2 * kSlice, "the depth is two stages");
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float* as = As + h * kSlot;
-    float* bs = Bs + h * kSlot;
-    stage<V, kTile, kSlice, kLds>(as, Ag, ld, 0, h * kSlice, an_rows,
-                                  k_valid);
-    if (kKN)
-      stage<V, kSlice, kTile, kLdsKN>(bs, Bg, ld, h * kSlice, 0,
-                                      min(b_rows, k_valid), b_cols);
-    else
-      stage<V, kTile, kSlice, kLds>(bs, Bg, ld, 0, h * kSlice, b_rows,
-                                    k_valid);
-    cp_async_commit();
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (h == 0)
-      cp_async_wait<1>();
-    else
-      cp_async_wait<0>();
-    if (dscale)
-      scale_cols<V, kTile, kSlice, kLds>(Bs + h * kSlot, dscale, h * kSlice,
-                                         k_valid);
-    __syncthreads();
-    mma_slice<kKN>(acc, As + h * kSlot, Bs + h * kSlot);
-  }
-}
 
 // ---- (a) the diagonal block, one CTA per matrix ----------------------------
 // NB = kNb, or kOneBlock when the whole matrix is one block.  The CTA
@@ -316,7 +154,7 @@ __global__ void __launch_bounds__(kThreads)
       // (b): L21[i, j] = sum_kk A21[i, kk] X11[j, kk] / d[j]
       const int i0 = k1 + u * kTile;
       const float* A21 = src + off + static_cast<size_t>(i0) * a + k0;
-      tile_gemm<V, false>(acc, As, Bs, A21, X11, a, a - i0, pw, 0, pw,
+      tile_gemm<V, false>(acc, As, Bs, A21, a, X11, a, a - i0, pw, 0, pw,
                           nullptr);
       const float* dp = d + static_cast<size_t>(b) * a + k0;
       float* L21 = W + off + static_cast<size_t>(i0) * a + k0;
@@ -337,7 +175,7 @@ __global__ void __launch_bounds__(kThreads)
         // (a'): X[k0 + r, c] = sum_kk X11[r, kk] X[k0 + kk, c], in place:
         // this CTA alone reads and writes these 64 columns of the strip,
         // and tile_gemm's last barrier follows every read
-        tile_gemm<V, true>(acc, As, Bs, X11, Xp, a, pw, pw, kTile, pw,
+        tile_gemm<V, true>(acc, As, Bs, X11, a, Xp, a, pw, pw, kTile, pw,
                            nullptr);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
@@ -395,7 +233,7 @@ __global__ void __launch_bounds__(kThreads)
         }
       const float* Li = W + off + static_cast<size_t>(i0) * a + k0;
       const float* Lj = W + off + static_cast<size_t>(j0) * a + k0;
-      tile_gemm<V, false>(acc, As, Bs, Li, Lj, a, a - i0, a - j0, 0, kNb,
+      tile_gemm<V, false>(acc, As, Bs, Li, a, Lj, a, a - i0, a - j0, 0, kNb,
                           d + static_cast<size_t>(b) * a + k0);
       float* Wo = W + off + static_cast<size_t>(i0) * a + j0;
 #pragma unroll
@@ -424,7 +262,7 @@ __global__ void __launch_bounds__(kThreads)
                           : 0.f;
       const float* Li = W + off + static_cast<size_t>(i0) * a + k0;
       const float* Xp = X + off + static_cast<size_t>(k0) * a + c0;
-      tile_gemm<V, true>(acc, As, Bs, Li, Xp, a, a - i0, kNb, kTile, kNb,
+      tile_gemm<V, true>(acc, As, Bs, Li, a, Xp, a, a - i0, kNb, kTile, kNb,
                          nullptr);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
@@ -472,10 +310,6 @@ int run(const float* A, float* X, float* d, float* W, int B, int a,
     }
   }
   return 0;
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace

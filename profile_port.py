@@ -3,6 +3,7 @@
     python3 profile_port.py [path ...] [--window W] [--cg-iters K]
     python3 profile_port.py --ldl [--ldl-against DIR]
     python3 profile_port.py --ell [--ell-against DIR]
+    python3 profile_port.py --sweep [--sweep-against DIR]
 
 Paths are `chip_smoke.paths()`: `flagship`, `bigleaf`, `sparse_f32`,
 `sparse_f64` and `sweep` (default: every path), each solved by the
@@ -45,6 +46,19 @@ gets K-major copies of the padded operators, and its epilogue cases run
 as its product followed by the separate torch operations, as its
 backend ran them; a source that reads the sliced layout gets this tree's
 operators.
+
+`--sweep` times the sweep kernel instead, at `chip_smoke.SWEEP_SHAPES`:
+per shape one JSON line with its device time per call, each of its CUDA
+kernels' share and launches (the pivot block, the panel and the update,
+and the wrapper's identity padding where a is odd), its CUDA launches per
+call, and its error against the f64 inverse beside the plain f32
+version's.  `--sweep-against DIR` also builds
+`DIR/pips_ipmpp_tpu_torch/csrc/sweep_inverse.cu` alone, gives its error
+too, and times the two in turns, other, this, this, other, the other
+behind the identity padding to a multiple of 16 that its wrapper gave
+it; a library without `sweep_inverse_workspace` (the one-CTA kernel of
+earlier commits) takes no scratch, and a shape it refuses shows its CUDA
+error instead.
 """
 from __future__ import annotations
 
@@ -64,7 +78,7 @@ import chip_smoke as cs
 from pips_ipmpp_tpu_torch import PIPSIPMppTorchInterface, _build
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
-from pips_ipmpp_tpu_torch.linalg import ldl, spmv
+from pips_ipmpp_tpu_torch.linalg import ldl, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
                                                         batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
@@ -158,7 +172,9 @@ def _other_lib(root, source, stem):
     alone with this tree's nvcc flags into this tree's build directory."""
     src = (Path(root) / "pips_ipmpp_tpu_torch" / "csrc" / source).resolve()
     text = src.read_bytes()
-    tag = hashlib.sha256(text).hexdigest()[:16]
+    header = src.with_name("ffma_tile.cuh")  # the tiles it may include
+    tag = hashlib.sha256(text + (header.read_bytes() if header.exists()
+                                 else b"")).hexdigest()[:16]
     out = _build.BUILD_DIR / f"lib{stem}_other_{tag}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -218,17 +234,7 @@ def ldl_table(against):
                 row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
         else:
             row["this_ms"] = [cs.device_ms(this, reps)]
-        this()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                this()
-            torch.cuda.synchronize()
-        row["parts"] = {e.key.split("::")[-1].split("(")[0]: dict(
-            ms=e.self_device_time_total / 1e3 / reps,
-            launches=e.count / reps)
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+        row["parts"] = kernel_parts(this, reps)
         print("ldl_time", json.dumps(row), flush=True)
         del A32, X, W, d, ref_inv
         torch.cuda.empty_cache()
@@ -322,6 +328,95 @@ def ell_table(against):
         torch.cuda.empty_cache()
 
 
+def other_sweep(root):
+    """`run(A) -> (A^{-1}, d)` of another checkout's sweep kernel on an
+    input already padded to a multiple of 16, raising its CUDA error.  A
+    library without `sweep_inverse_workspace` is the one-CTA kernel of
+    earlier commits: it takes no scratch."""
+    lib, _ = _other_lib(root, "sweep_inverse.cu", "sweep")
+    fn = lib.sweep_inverse_f32
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    scratch = hasattr(lib, "sweep_inverse_workspace")
+    fn.argtypes = [vp] * (4 if scratch else 3) + [ci, ci, vp]
+    fn.restype = ci
+    if scratch:
+        lib.sweep_inverse_workspace.argtypes = [ci]
+        lib.sweep_inverse_workspace.restype = ci
+
+    def run(A):
+        B, a, _ = A.shape
+        X = torch.empty_like(A)
+        d = torch.empty(B, a, device=A.device)
+        ptrs = [A.data_ptr(), X.data_ptr(), d.data_ptr()]
+        if scratch:
+            work = torch.empty(B, lib.sweep_inverse_workspace(a),
+                               device=A.device)
+            ptrs.append(work.data_ptr())
+        rc = fn(*ptrs, B, a, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"CUDA error {rc}")
+        return X, d
+    return run
+
+
+def kernel_parts(fn, reps):
+    """{CUDA kernel name: device ms and launches per call} of `fn()`."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("::")[-1].split("(")[0]: dict(
+        ms=e.self_device_time_total / 1e3 / reps, launches=e.count / reps)
+        for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+def sweep_table(against):
+    """The sweep kernel's device time per call at every SWEEP_SHAPES
+    entry, with its parts, and, given another checkout, that one's in
+    turns."""
+    lib = _build.load()
+    other = other_sweep(against) if against else None
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(2)
+    for B, a, n_pos in cs.SWEEP_SHAPES:
+        A = cs.ldl_input(B, a, n_pos, gen)
+        A32 = A.float().contiguous()
+        ref_inv = torch.linalg.inv(A)
+        del A
+
+        def err(out):
+            return cs.rel_err(out[0], ref_inv)[0]
+
+        this = partial(sweep.sweep_inverse, A32)
+        reps = 5 if a >= 1024 else 20
+        row = dict(shape=[B, a, a], n_pos=n_pos,
+                   launches_per_call=lib.sweep_inverse_launches(
+                       sweep.padded_edge(a)),
+                   bound_ms=cs.sweep_bound(B, a)[0],
+                   this_rel_err=err(this()),
+                   plain_f32_rel_err=err(sweep.sweep_inverse_ref(A32)))
+        run_other = None
+        if other is not None:
+            run_other = partial(sweep._padded, A32, other, sweep.PANEL)
+            try:
+                row["other_rel_err"] = err(run_other())
+            except RuntimeError as exc:
+                row["other_error"] = str(exc)
+                run_other = None
+        if run_other is not None:
+            t = [cs.device_ms(f, reps)
+                 for f in (run_other, this, this, run_other)]
+            row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
+        else:
+            row["this_ms"] = [cs.device_ms(this, reps)]
+        row["parts"] = kernel_parts(this, reps)
+        print("sweep_time", json.dumps(row), flush=True)
+        del A32, ref_inv
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     table = cs.paths()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -339,6 +434,11 @@ def main(argv):
                          "products at the 8 x 8192 instance")
     ap.add_argument("--ell-against", metavar="DIR", default=None,
                     help="with --ell: also time DIR's ELL kernel, in turns")
+    ap.add_argument("--sweep", action="store_true",
+                    help="time the sweep kernel at chip_smoke.SWEEP_SHAPES")
+    ap.add_argument("--sweep-against", metavar="DIR", default=None,
+                    help="with --sweep: also time DIR's sweep kernel, in "
+                         "turns")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.paths) - set(table))
     if unknown:
@@ -349,7 +449,10 @@ def main(argv):
         ldl_table(args.ldl_against)
     if args.ell:
         ell_table(args.ell_against)
-    for name in args.paths or ([] if args.ldl or args.ell else list(table)):
+    if args.sweep:
+        sweep_table(args.sweep_against)
+    kernels = args.ldl or args.ell or args.sweep
+    for name in args.paths or ([] if kernels else list(table)):
         profile(name, table[name], args.window, args.cg_iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -5,6 +5,8 @@ import os
 import subprocess
 import sys
 
+import torch_parity  # noqa: F401  (pins torch to one thread)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

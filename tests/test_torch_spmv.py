@@ -8,6 +8,7 @@ machine with a card and no JAX the kernel test runs alone:
 import numpy as np
 import pytest
 import torch
+import torch_parity  # noqa: F401  (pins torch to one thread)
 
 from pips_ipmpp_tpu_torch.core.sparse import Ell, ell_transpose
 from pips_ipmpp_tpu_torch.linalg import spmv

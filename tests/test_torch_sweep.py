@@ -1,5 +1,6 @@
-"""The PyTorch sweep inverse (linalg/sweep.py) against the JAX Pallas
-kernel (interpret mode, its default off TPU), the opt-in
+"""The PyTorch sweep inverse (linalg/sweep.py) and the plain mirror of the
+CUDA kernel's 64-column algorithm against the JAX Pallas kernel
+(interpret mode, its default off TPU), the opt-in
 `ArrowBackend(sweep_kernel=True)` solve against the JAX package's, and the
 CUDA kernel against the plain version on a card.
 
@@ -11,6 +12,7 @@ from functools import partial
 import numpy as np
 import pytest
 import torch
+import torch_parity  # noqa: F401  (pins torch to one thread)
 
 from pips_ipmpp_tpu_torch.linalg import sweep
 
@@ -54,6 +56,44 @@ def test_plain_matches_pallas_interpret(case):
     assert (dt[:, :n_pos] > 0).all() and (dt[:, n_pos:] < 0).all()
     eye = np.eye(A.shape[1])
     assert np.abs(It @ A - eye).max() < 1e-9
+
+
+# (case, panel width): a = 100 at nb = 32 pads to 112, panels 32, 32, 32 and
+# a ragged 16; at nb = 64, panels 64 and 48; the quasidefinite 64 x 64 in
+# two panels
+BLOCKED = {"spd_100_nb32": (lambda rng: (_spd(rng, 2, 100), 100), 32),
+           "spd_100_nb64": (lambda rng: (_spd(rng, 2, 100), 100), 64),
+           "quasidef_64_nb32": (_quasidefinite, 32)}
+
+
+@pytest.mark.parametrize("case", sorted(BLOCKED))
+def test_blocked_plain_matches_pallas_interpret(case):
+    import jax.numpy as jnp
+    from pips_ipmpp_tpu.linalg.pallas_sweep import sweep_inverse
+
+    make, nb = BLOCKED[case]
+    A, n_pos = make(np.random.default_rng(1))
+    Ij, dj = sweep_inverse(jnp.asarray(A), interpret=True)
+    Ib, db = sweep.sweep_inverse_blocked_ref(torch.from_numpy(A), nb)
+    assert Ib.dtype == torch.float64 and Ib.shape == A.shape
+    Ij, dj, Ib, db = map(np.asarray, (Ij, dj, Ib, db))
+    # f64, wider panels: the same sweep in exact arithmetic, so rounding
+    # only, held to the bounds of the same-order comparison above
+    tol = 1e-9 if case.startswith("quasidef") else 1e-10
+    assert np.abs(Ib - Ij).max() <= tol * np.abs(Ij).max()
+    # the pivots are the same quantities as the 16-column kernel's
+    assert (np.abs(db - dj) <= 1e-10 * np.abs(dj)).all()
+    np.testing.assert_array_equal(np.sign(db), np.sign(dj))
+    assert (db[:, :n_pos] > 0).all() and (db[:, n_pos:] < 0).all()
+
+
+def test_blocked_plain_at_16_is_the_reference_order():
+    A = torch.from_numpy(_spd(np.random.default_rng(4), 2, 40))
+    for got, want in zip(sweep.sweep_inverse_blocked_ref(A, 16),
+                         sweep.sweep_inverse_ref(A)):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        sweep.sweep_inverse_blocked_ref(A, 24)
 
 
 def test_f32_plain_keeps_dtype_and_inertia():
@@ -151,18 +191,45 @@ def test_cpu_tensor_never_counts_a_launch():
     assert sweep.sweep_inverse.launches == before
 
 
+def _root(rng, a, n_pos):
+    """[[SPD, M'], [M, -SPD]]: the flagship root's quasidefinite form."""
+    A = _spd(rng, 1, a)
+    A[:, n_pos:, :n_pos] *= 0.5
+    A[:, :n_pos, n_pos:] = np.swapaxes(A[:, n_pos:, :n_pos], 1, 2)
+    A[:, n_pos:, n_pos:] *= -1.0
+    return A, n_pos
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from pips_ipmpp_tpu_torch import _build
+
+    lib = _build.load()
     rng = np.random.default_rng(8)
+    # one launch (a <= 64; a = 37 pads to 38), the first pivot block and
+    # two per 64-column panel (a = 256 and the root), ragged last panels
+    # (a = 300: 64 x 4 + 44; a = 201 pads to 202, not a multiple of 4, so
+    # the 4-byte staging runs), and an edge above the shared-memory cap of
+    # 1701 of the kernel before
     for A, n_pos in (CASES["spd_37"](rng), CASES["quasidef_64"](rng),
-                     (_spd(rng, 8, 256), 256)):
+                     (_spd(rng, 8, 256), 256), _root(rng, 192, 64),
+                     (_spd(rng, 2, 300), 300), (_spd(rng, 1, 201), 201),
+                     (_spd(rng, 1, 1800), 1800)):
         A32 = torch.from_numpy(A.astype(np.float32)).cuda()
         before = sweep.sweep_inverse.launches
-        Ik, dk = sweep.sweep_inverse(A32)
         torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            Ik, dk = sweep.sweep_inverse(A32)
+            torch.cuda.synchronize()
         assert sweep.sweep_inverse.launches == before + 1
+        # the CUDA launches of the kernel's parts, as the profiler saw them
+        launched = sum(e.count for e in prof.key_averages()
+                       if "sweep_" in e.key and e.self_device_time_total > 0)
+        assert launched == lib.sweep_inverse_launches(
+            sweep.padded_edge(A.shape[1]))
         Ip, dp = sweep.sweep_inverse_ref(A32)
         ref = np.linalg.inv(A)
         err_k = np.abs(Ik.double().cpu().numpy() - ref).max()

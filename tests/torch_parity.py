@@ -1,12 +1,18 @@
 """Helpers for the parity tests between the JAX package and its PyTorch
 counterpart: data crosses between them as numpy arrays only.  JAX is
-imported only by the helpers that build JAX values."""
+imported only by the helpers that build JAX values.
+
+Importing it pins torch to one intra-op thread: the tests run in several
+worker processes that share the machine's cores with each other and with
+the JAX tests, and the port's tests work on small tensors."""
 import dataclasses
 
 import numpy as np
 import torch
 
 from pips_ipmpp_tpu_torch import bridge
+
+torch.set_num_threads(1)
 
 
 def jax_fields(obj) -> dict:
