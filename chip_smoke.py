@@ -17,7 +17,20 @@ read just after (the ELL kernel's also per operator and width):
     LDL^T kernel at the root) and the f64 sparse solve, both against the
     instance's HiGHS f64 oracle objective;
   - the opt-in sweep path (sweep kernel at leaves and root) on the JAX
-    package's own sweep acceptance LP, against its analytic optimum.
+    package's own sweep acceptance LP, against its analytic optimum;
+  - the fused loop (`IPMSolver.solve_fused`, the whole solve as one
+    captured CUDA graph with conditional nodes): the flagship, the big
+    leaf, the sparse f32 path (the CG a WHILE node around the ELL
+    kernel), the flagship with `residual_update_every=4`, and a stream of
+    four flagship LPs through `solve_fused_async`, each held to its twin
+    (the host loop; for `residual_update_every=4`, which the host loop
+    does not read, the same loop run eagerly: status, iterations,
+    objective to 1e-6) and to the f64 objective, with the host-side CUDA
+    calls of one warm solve;
+  - the 26 GAMSsmall golden instances in f64 through both loops, every
+    fused solve captured and held to its host loop, both loops to
+    PIPS-IPM++'s recorded acceptance (`GOLDEN_OPEN` names the instances of
+    an open fault that may miss it).
 
 `paths()` defines the solves; `profile_port.py` profiles the same ones.
 
@@ -35,7 +48,9 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from functools import lru_cache, partial
+from pathlib import Path
 
 import torch
 
@@ -129,17 +144,35 @@ def device_ms(fn, reps):
     return None
 
 
+def loop_ms(fn, n):
+    """Milliseconds per call of `n` back-to-back calls of `fn()` between
+    two CUDA events, after one warm-up call: the device time of a call
+    where the device keeps up with the host, an upper bound of it where
+    the host's launches set the pace."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def timings(kernel, plain, library, reps, plain_reps):
     """Device and wall (CUDA events around one call, host dispatch
     included) milliseconds of the kernel, its plain version and, where
-    there is one, the library call computing the same function."""
+    there is one, the library call computing the same function (also over
+    200 back-to-back calls: `library_loop_ms`)."""
     out = dict(ms=device_ms(kernel, reps), wall_ms=cuda_ms(kernel, reps),
                plain_ms=device_ms(plain, plain_reps),
                plain_wall_ms=cuda_ms(plain, plain_reps),
-               library_ms=None, library_wall_ms=None)
+               library_ms=None, library_wall_ms=None, library_loop_ms=None)
     if library is not None:
         out.update(library_ms=device_ms(library, reps),
-                   library_wall_ms=cuda_ms(library, reps))
+                   library_wall_ms=cuda_ms(library, reps),
+                   library_loop_ms=loop_ms(library, 200))
     return out
 
 
@@ -159,13 +192,18 @@ COUNTED = {"ldl_inverse_f32": ldl.ldl_inverse_factors,
 
 def reset_counts():
     for fn in COUNTED.values():
-        fn.launches = 0
+        fn.launches = fn.captured = 0
     spmv.ell_spmm.launches_by.clear()
     batched_pcg.readbacks = batched_pcg.calls = batched_pcg.capped = 0
 
 
 def read_counts():
     return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def read_captured():
+    """Launches recorded into captured graphs since the last reset."""
+    return {name: fn.captured for name, fn in COUNTED.items()}
 
 
 def drive(name, run, kernels):
@@ -553,6 +591,271 @@ def report(name, out, counts, ref_objective, rtol, n_vars, **extra):
             f"{name}: solution of shape {tuple(x.shape)} not finite")
 
 
+@dataclass
+class Setup:
+    """One path ready for an IPMSolver: the LP on the card as the solver
+    takes it (scaled, for a facade path), the solver the facade or the
+    path builds, and what maps a solution back to the LP as given."""
+    lp: object
+    solver: IPMSolver
+    raw: object
+    scaler: object = None
+
+    def objective(self, res) -> float:
+        """The objective of a result's iterate on the unscaled LP."""
+        x = res.iterate.x
+        if self.scaler is not None:
+            x = self.scaler.unscale_x(x)
+        return float(torch.dot(self.raw.c0.double(), x.first.double())
+                     + torch.dot(self.raw.cN.double().reshape(-1),
+                                 x.blocks.double().reshape(-1)))
+
+
+def setup(make, cg_iters=None, **opt_overrides) -> Setup:
+    """The solver of one `paths()` entry: for a facade path the LP scaled
+    and the solver built as the facade does; `opt_overrides` replace
+    options, `cg_iters` the leaf CG's cap of a path with its own sparse
+    backend."""
+    lp, opts, backend = make()
+    opts = opts.replace(**opt_overrides)
+    if backend is None:
+        if cg_iters is not None:
+            raise ValueError("cg_iters needs a path with its own backend")
+        iface = PIPSIPMppTorchInterface(lp, opts, device=DEVICE)
+        out = Setup(iface.lp, iface._solver, iface.lp)
+        if opts.scaler != ScalerType.NONE:
+            out.scaler = make_scaler(opts.scaler)
+            out.lp = out.scaler.scale(out.lp)
+        return out
+    if cg_iters is not None:
+        backend = partial(backend, cg_iters=cg_iters)
+    lp = lp.to(DEVICE)
+    return Setup(lp, IPMSolver(backend, opts, device=DEVICE), lp)
+
+
+def host_launches(fn):
+    """Host-side CUDA runtime calls of one `fn()` that put work on the
+    card (the profiler's runtime events): kernel launches, graph launches
+    and copies or fills.  The profiler does not see the kernels inside a
+    replayed graph, and its third session in one process faulted on a
+    replay of the sparse graph (ROADMAP.md §3, F4): `fused_host_calls`
+    runs it in a fresh process."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    count = lambda *keys: sum(e.count for e in ev           # noqa: E731
+                              if any(k in e.key for k in keys))
+    return dict(kernel=count("LaunchKernel"), graph=count("GraphLaunch"),
+                copy=count("Memcpy", "Memset"))
+
+
+# the fused loop's paths: name -> (paths() entry, option overrides)
+FUSED_PATHS = {"flagship": ("flagship", {}), "bigleaf": ("bigleaf", {}),
+               "sparse_f32": ("sparse_f32", {}),
+               "flagship_update_every_4": ("flagship",
+                                           dict(residual_update_every=4))}
+
+
+def graph_ms(solver, reps=3):
+    """Device milliseconds of one replay of the solver's captured graph
+    (CUDA events around the replay alone; its inputs as they stand), the
+    median of `reps`."""
+    (fused,) = solver._graphs.values()
+    return cuda_ms(fused.graph.replay, reps)
+
+
+def fused_host_calls(name):
+    """`profile_port.py --fused NAME` in a fresh process: its JSON line."""
+    here = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, str(here / "profile_port.py"), "--fused", name,
+         "--reps", "1"], capture_output=True, text=True, timeout=600,
+        cwd=here)
+    require(proc.returncode == 0, f"profile_port.py --fused {name} failed:"
+                                  f"\n{proc.stdout[-2000:]}"
+                                  f"{proc.stderr[-4000:]}")
+    return json.loads(next(line for line in proc.stdout.splitlines()
+                           if line.startswith("{")))
+
+
+def eager_fused(st: Setup):
+    """The fused loop's algorithm run eagerly on the card (no capture):
+    `device_loop.solve_on_device` over the backend `solve_fused` builds."""
+    from types import SimpleNamespace
+
+    from pips_ipmpp_tpu_torch.ipm.device_loop import (decode_status,
+                                                      solve_on_device)
+    from pips_ipmpp_tpu_torch.ipm.solver import WORKING_DTYPE
+
+    be = st.solver.be_ctor(st.lp.to(DEVICE).astype(WORKING_DTYPE))
+    _, info = solve_on_device(be, st.solver.opts)
+    return SimpleNamespace(status=decode_status(int(info["status"])),
+                           iterations=int(info["iterations"]),
+                           objective=float(info["objective"]))
+
+
+def fused_twin(name, st: Setup, f64_objective, rtol, kernels):
+    """The host loop and the fused loop on one solver and LP: the fused
+    solve captured (first call), then replayed warm.  Each kernel of
+    `kernels` must be launched into the graph; the fused solve must have
+    its twin's status and iterations, an objective within 1e-6 of its,
+    and be within `rtol` of the f64 objective.  The twin is the host
+    loop, or, where the options ask for carried residuals
+    (`residual_update_every`, which the host loop does not read, as in
+    the JAX package), the same fused loop run eagerly."""
+    reset_counts()
+    t0 = time.perf_counter()
+    host = st.solver.solve(st.lp)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    twin = host
+    if st.solver.opts.residual_update_every:
+        twin = eager_fused(st)
+    t0 = time.perf_counter()
+    fused = st.solver.solve_fused(st.lp)
+    first_s = time.perf_counter() - t0
+    counts, captured = read_counts(), read_captured()
+    t0 = time.perf_counter()
+    warm = st.solver.solve_fused(st.lp)
+    warm_s = time.perf_counter() - t0
+    dev_ms = graph_ms(st.solver, reps=1)
+    calls = fused_host_calls(name)["host_calls_per_solve"]
+    obj = st.objective(fused)
+    rel_host = abs(fused.objective - twin.objective) / max(
+        abs(twin.objective), 1.0)
+    rel_f64 = abs(obj - f64_objective) / max(abs(f64_objective), 1.0)
+    it = fused.iterations
+    row = dict(case=name, graph=fused.info["graph"], status=fused.status.name,
+               iterations=it, turns=fused.info["turns"],
+               host_status=host.status.name, host_iterations=host.iterations,
+               host_solve_s=host_s, twin="host" if twin is host else "eager",
+               twin_iterations=twin.iterations, first_solve_s=first_s,
+               solve_s=warm_s, iter_per_s=it / warm_s, objective=obj,
+               objective_rel_twin=rel_host, f64_objective=f64_objective,
+               objective_rel_f64=rel_f64, launches=counts,
+               captured_launches=captured, host_calls_per_solve=calls,
+               graph_ms=dev_ms, device_ms_per_iteration=dev_ms / max(it, 1),
+               busy_share=dev_ms / 1e3 / warm_s)
+    print("fused", json.dumps(row), flush=True)
+    require(fused.info["graph"], f"{name}: the fused solve was not captured")
+    for k in kernels:
+        require(captured[k] > 0, f"{name}: no {k} launch in the graph")
+    require(fused.status == twin.status
+            and fused.iterations == twin.iterations,
+            f"{name}: fused {fused.status.name} in {it} iterations, its "
+            f"twin {twin.status.name} in {twin.iterations}")
+    require(fused.status == TerminationStatus.SUCCESSFUL_TERMINATION
+            and host.status == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"{name}: status {fused.status}, host loop {host.status}")
+    require(rel_host <= 1e-6, f"{name}: fused objective off its twin's "
+                              f"by {rel_host:.3e} relative")
+    require(rel_f64 <= rtol, f"{name}: fused objective off f64 by "
+                             f"{rel_f64:.3e} relative")
+    require(warm.iterations == it and warm.objective == fused.objective,
+            f"{name}: the replay gave {warm.iterations} iterations, "
+            f"objective {warm.objective}")
+    return counts, row
+
+
+def fused_stream(st: Setup, seeds):
+    """A stream of flagship LPs (one per seed, same shapes) queued through
+    `solve_fused_async` and fetched once, each against its host loop."""
+    lps = [st.scaler.scale(random_arrowhead_lp(
+        s, dtype=torch.float32, device=DEVICE, **FLAGSHIP)) for s in seeds]
+    hosts = [st.solver.solve(lp) for lp in lps]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [st.solver.solve_fused_async(lp) for lp in lps]
+    queued_s = time.perf_counter() - t0
+    got = torch.stack([torch.stack([info["status"].double(),
+                                    info["iterations"].double(),
+                                    info["objective"]])
+                       for _, info in outs]).tolist()
+    stream_s = time.perf_counter() - t0
+    rows = []
+    for s, host, (status, its, obj), (_, info) in zip(seeds, hosts, got,
+                                                       outs):
+        rel = abs(obj - host.objective) / max(abs(host.objective), 1.0)
+        rows.append(dict(seed=s, graph=info["graph"], status=int(status),
+                         iterations=int(its), host_iterations=host.iterations,
+                         objective_rel_host=rel))
+        require(info["graph"] and int(status) == 1
+                and host.status == TerminationStatus.SUCCESSFUL_TERMINATION
+                and int(its) == host.iterations and rel <= 1e-6,
+                f"fused stream seed {s}: status {int(status)}, {int(its)} "
+                f"iterations, objective off the host loop's by {rel:.3e} "
+                f"(host {host.status.name} in {host.iterations})")
+    out = dict(case="flagship_stream", lps=len(seeds), queued_s=queued_s,
+               stream_s=stream_s, solves_per_s=len(seeds) / stream_s,
+               rows=rows)
+    print("fused_stream", json.dumps(out), flush=True)
+    return out
+
+
+# golden instances that may miss the acceptance on the card: the open
+# fault of ROADMAP.md §3 that they show (F3: a root block singular to
+# working precision, whose factor and solution the card's Cholesky
+# decides otherwise than the CPU's)
+GOLDEN_OPEN = {"hier_approach_4blocks_2by2": "F3",
+               "singletonInequalityColumn_B1": "F3"}
+
+
+def golden_phase():
+    """The 26 GAMSsmall instances (tests/data/gamssmall) in f64 through the
+    host loop and the fused loop on the card: every fused solve captured,
+    with the host loop's status and iterations and its objective to 1e-6,
+    and both loops held to PIPS-IPM++'s acceptance (SUCCESSFUL_TERMINATION,
+    objective within 1e-4 of the recorded one, at most ceil(1.1 x
+    recorded) iterations).  The instances of `GOLDEN_OPEN` are the only
+    ones allowed to miss it: an open fault of the port on the card
+    (ROADMAP.md §3), reported per instance."""
+    import math
+
+    from pips_ipmpp_tpu_torch.io.blockfile import read_blocks
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "gamssmall"
+    manifest = json.loads((data / "manifest.json").read_text())
+    failed = []
+    for e in manifest:
+        lp = read_blocks(str(data / e["name"]), n_blocks=e["n_files"],
+                         device=DEVICE)
+        solver = IPMSolver(partial(ArrowBackend, factor_dtype=torch.float64),
+                           Options(), device=DEVICE)
+        host = solver.solve(lp)
+        fused = solver.solve_fused(lp)
+        budget = math.ceil(1.1 * e["iterations"])
+
+        def accepted(r):
+            return (r.status == TerminationStatus.SUCCESSFUL_TERMINATION
+                    and abs(r.objective - e["objective"]) < 1e-4
+                    and r.iterations <= budget)
+
+        row = dict(name=e["name"], graph=fused.info["graph"],
+                   status=fused.status.name, iterations=fused.iterations,
+                   host_iterations=host.iterations, recorded=e["iterations"],
+                   budget=budget, objective=fused.objective,
+                   recorded_objective=e["objective"],
+                   objective_rel_host=abs(fused.objective - host.objective)
+                   / max(abs(host.objective), 1.0),
+                   accepted=accepted(fused), host_accepted=accepted(host))
+        print("golden", json.dumps(row), flush=True)
+        require(fused.info["graph"], f"{e['name']}: not captured")
+        require(fused.status == host.status
+                and fused.iterations == host.iterations
+                and row["objective_rel_host"] <= 1e-6,
+                f"{e['name']}: fused {row} off the host loop")
+        if not (row["accepted"] and row["host_accepted"]):
+            require(e["name"] in GOLDEN_OPEN,
+                    f"{e['name']}: misses the manifest's acceptance {row}")
+            failed.append(e["name"])
+    return dict(instances=len(manifest), graphs=len(manifest),
+                accepted=len(manifest) - len(failed), not_accepted=failed,
+                open_faults={k: GOLDEN_OPEN[k] for k in failed})
+
+
 def dense_path(name, f32_run, f64_run, n_vars, kernel):
     """The f64 reference (no kernel launch allowed), then the f32 path."""
     ref, ref_counts = drive(f"{name} f64 reference", f64_run, [])
@@ -566,7 +869,7 @@ def dense_path(name, f32_run, f64_run, n_vars, kernel):
     require(counts[kernel] >= 2 * out["iterations"],
             f"{name}: {counts[kernel]} {kernel} launches for "
             f"{out['iterations']} iterations")
-    return counts, out
+    return counts, out, ref["objective"]
 
 
 def main():
@@ -608,18 +911,20 @@ def main():
 
     # ---- 4. dense main path: flagship through the facade ----
     flag, opts, _ = P["flagship"]()
-    add(dense_path(
+    counts, _, flag_f64 = dense_path(
         "flagship_facade", partial(facade_run, flag, opts),
         partial(facade_run, flag.astype(torch.float64),
                 opts.replace(factor_dtype="float64")),
-        flag.total_vars(), "ldl_inverse_f32")[0])
+        flag.total_vars(), "ldl_inverse_f32")
+    add(counts)
 
     # ---- 5. dense main path: big leaves, bench production configuration
     big, opts, backend = P["bigleaf"]()
-    add(dense_path(
+    counts, _, big_f64 = dense_path(
         "bigleaf_ipmsolver", partial(solver_run, big, backend, opts),
         partial(solver_run, big, f64_factors, opts),
-        big.total_vars(), "ldl_inverse_f32")[0])
+        big.total_vars(), "ldl_inverse_f32")
+    add(counts)
 
     # ---- 6. sparse path through the facade, f32 factors: 4.3 GB of dense
     #         twin > the 256 MB default budget -> SparseArrowBackend ----
@@ -641,7 +946,7 @@ def main():
 
     # ---- 8. opt-in sweep path, the JAX package's sweep test in f32 ----
     sweep_lp, opts, backend = P["sweep"]()
-    sweep_counts, sweep_out = dense_path(
+    sweep_counts, sweep_out, _ = dense_path(
         "sweep_ipmsolver", partial(solver_run, sweep_lp, backend, opts),
         partial(solver_run, sweep_lp, f64_factors, opts),
         sweep_lp.total_vars(), "sweep_inverse")
@@ -651,7 +956,32 @@ def main():
             f"sweep solve objective {sweep_out['objective']} is not the "
             f"optimum {SWEEP_OPTIMUM}")
 
-    # ---- 9. the kernels line ----
+    # ---- 9. the fused loop: each path as one captured graph, against its
+    #         host loop and the f64 objective ----
+    fused_rows = []
+    for name, f64_obj, kernels in (
+            ("flagship", flag_f64, ["ldl_inverse_f32"]),
+            ("bigleaf", big_f64, ["ldl_inverse_f32"]),
+            ("sparse_f32", SPARSE_ORACLE, ["ell_spmm", "ldl_inverse_f32"]),
+            ("flagship_update_every_4", flag_f64, ["ldl_inverse_f32"])):
+        path, over = FUSED_PATHS[name]
+        st = setup(P[path], **over)
+        counts, row = fused_twin(name, st, f64_obj, OBJ_RTOL, kernels)
+        add(counts)
+        fused_rows.append(row)
+        if name == "flagship":
+            reset_counts()
+            fused_stream(st, range(4))
+            add(read_counts())
+        del st
+        torch.cuda.empty_cache()
+
+    # ---- 10. the golden instances, f64, both loops ----
+    reset_counts()
+    golden = golden_phase()
+    print("golden_summary", json.dumps(golden), flush=True)
+
+    # ---- 11. the kernels line ----
     leaf = ldl_rows[0]
     ell = next(r for r in ell_rows if r["case"] == "fwd"
                and r["dtype"] == "float32" and r["c"] > 1)

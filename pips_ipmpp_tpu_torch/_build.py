@@ -1,7 +1,9 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The sources under `csrc/` have plain C interfaces (the header
-`ffma_tile.cuh` holds the FFMA tiles two of them share).  One `nvcc` per
+`ffma_tile.cuh` holds the FFMA tiles two of them share): the three
+kernels, and `graph_while.cu`, the conditional graph nodes of the fused
+loop (`ipm/control.py`).  One `nvcc` per
 source, all started together, compiles them for Hopper (`sm_90a`); one
 more links the objects into a shared library named by the content hash of
 the sources and the header, `build/libpips_kernels_<hash>.so` beside this
@@ -20,7 +22,8 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 _SOURCES = tuple(_HERE / "csrc" / name for name in
-                 ("ldl_inverse.cu", "ell_spmm.cu", "sweep_inverse.cu"))
+                 ("ldl_inverse.cu", "ell_spmm.cu", "sweep_inverse.cu",
+                  "graph_while.cu"))
 _HEADERS = (_HERE / "csrc" / "ffma_tile.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -97,6 +100,9 @@ def load() -> ctypes.CDLL:
         "sweep_inverse_f32": [vp, vp, vp, vp, ci, ci, vp],
         "sweep_inverse_launches": [ci],
         "sweep_inverse_workspace": [ci],
+        "graph_cond_prepare": [],
+        "graph_cond_begin": [vp, vp, vp, ci, ci, ctypes.c_void_p],
+        "graph_cond_end": [vp, ctypes.c_ulonglong, vp, ci, vp],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -76,6 +76,10 @@ def _space_leaves(tree):
 
 
 def _vdot(a, b):
+    if a.numel() == 0:
+        # cuBLAS writes an empty dot's 0 from host memory, a copy that a
+        # captured CUDA graph cannot replay
+        return a.new_zeros(())
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 

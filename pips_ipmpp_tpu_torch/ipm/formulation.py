@@ -303,7 +303,7 @@ def find_blocking(be, it: Iterate, d: Iterate, primal: bool):
     its step, (partner_b, dpartner_b) the OTHER side of that pair, and
     `blocking` is False when no pair blocks below 1.
 
-    Per-leaf masked argmin + gather, then a leaf-chained select; ties go
+    Per-leaf masked argmin + take, then a leaf-chained select; ties go
     to the first index (torch.argmin and jnp.argmin agree on that) and to
     the earlier leaf."""
     bd = be.bounds
@@ -327,8 +327,8 @@ def find_blocking(be, it: Iterate, d: Iterate, primal: bool):
                 continue
             r = _ratio(ml, al, dal).reshape(-1)
             i = torch.argmin(r)
-            cand = (r[i], al.reshape(-1)[i], dal.reshape(-1)[i],
-                    pl.reshape(-1)[i], dpl.reshape(-1)[i])
+            # torch.take: indexing with a 0-dim tensor would read i back
+            cand = tuple(torch.take(t, i) for t in (r, al, dal, pl, dpl))
             take = cand[0] < best[0]
             best = tuple(torch.where(take, c, b) for c, b in zip(cand, best))
 

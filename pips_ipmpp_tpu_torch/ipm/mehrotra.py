@@ -4,8 +4,10 @@ Counterpart of `pips_ipmpp_tpu/ipm/mehrotra.py`: one call = one IPM
 iteration (factorize + predictor solve + corrector solve + Gondzio loop +
 step), after the reference's InteriorPointMethod
 (Core/InteriorPointMethod/InteriorPointMethod.cpp).  The JAX package's
-`lax.while_loop`/`lax.cond` become Python loops and `if`s; each decision
-reads its flags back from the device in one transfer.
+`lax.while_loop`/`lax.cond` are `control.dev_while`/`dev_cond`: eager in
+the host loop, where each test reads its flag back, and conditional graph
+nodes when the fused loop is captured.  Every quantity a decision reads,
+the Gondzio loop's counters and flags included, is a device tensor.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from pips_ipmpp_tpu_torch.core.options import Options, StepMode
 from pips_ipmpp_tpu_torch.core.spaces import leaves, tmap
 from pips_ipmpp_tpu_torch.ipm import formulation as F
+from pips_ipmpp_tpu_torch.ipm.control import dev_cond, dev_while
 
 
 @dataclass
@@ -25,7 +28,7 @@ class StepStats:
     sigma: Any
     alpha_primal: Any
     alpha_dual: Any
-    n_gondzio: int
+    n_gondzio: Any
     factor_ok: Any
 
 
@@ -42,14 +45,16 @@ def _alphas(be, it, d, opts: Options):
 
 
 def _weights(n: int, like: torch.Tensor) -> torch.Tensor:
-    """n line-search weights 1/n, 2/n, ..., 1."""
-    return torch.tensor([(i + 1) / n for i in range(n)], dtype=like.dtype,
-                        device=like.device)
+    """n line-search weights 1/n, 2/n, ..., 1 (each (i + 1) / n rounded
+    once, as a Python division rounds it), made on the device."""
+    return torch.arange(1, n + 1, dtype=like.dtype, device=like.device) / n
 
 
-def _flags(*conds) -> list[bool]:
-    """Read several boolean scalars back from the device in one transfer."""
-    return [bool(v) for v in torch.stack(conds).tolist()]
+def _argmax_take(scores, *vals):
+    """vals[argmax(scores)] for each of vals, with no read-back (indexing
+    with a 0-dim tensor would read the index back)."""
+    i = torch.argmax(scores)
+    return [torch.take(v, i) for v in vals]
 
 
 def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
@@ -90,7 +95,7 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
         a_p, a_d = _alphas(be, it, d, opts)
 
     # ---- Gondzio multiple centrality correctors (reference :236-358) ----
-    n_gondzio = 0
+    n_gondzio = torch.zeros((), dtype=torch.int32, device=mu.device)
     if opts.max_gondzio_correctors > 0:
         zero_res = tmap(torch.zeros_like, res)
         it_idx = iteration if iteration is not None else -1
@@ -100,55 +105,64 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
         nw = max(opts.n_linesearch_points, 1)
         ws = _weights(nw, mu)
         tol = 1.0 + opts.acceptance_tolerance
-        n_small, small_corr, go = 0, False, True
-        (unconverged,) = _flags(torch.minimum(a_p, a_d) < 1.0)
-        while (go and unconverged and n_gondzio < opts.max_gondzio_correctors
-               and n_small < max_small):
+
+        def cond(carry):
+            _, ap_c, ad_c, k, n_small, _, go = carry
+            return (go & (torch.minimum(ap_c, ad_c) < 1.0)
+                    & (k < opts.max_gondzio_correctors)
+                    & (n_small < max_small))
+
+        def body(carry):
+            d_c, ap_c, ad_c, k, n_small, small_corr, _ = carry
             # enlarged trial steps alpha_t = min(1, f1*alpha + f0)
-            ap_t = torch.clamp(opts.step_factor1 * a_p + opts.step_factor0,
+            ap_t = torch.clamp(opts.step_factor1 * ap_c + opts.step_factor0,
                                max=1.0)
-            ad_t = torch.clamp(opts.step_factor1 * a_d + opts.step_factor0,
+            ad_t = torch.clamp(opts.step_factor1 * ad_c + opts.step_factor0,
                                max=1.0)
             # small-pair correctors lift the upper projection bound to +inf
             # so only tiny complementarity products are pushed
-            beta_hi = float("inf") if small_corr else opts.beta_max
-            comp_g = F.comp_rhs_gondzio(be, it, d, ap_t, ad_t, sigma_mu,
+            beta_hi = torch.full_like(mu, opts.beta_max).masked_fill(
+                small_corr, float("inf"))
+            comp_g = F.comp_rhs_gondzio(be, it, d_c, ap_t, ad_t, sigma_mu,
                                         opts.beta_min, beta_hi)
             corr = _solve_dir(be, it, zero_res, comp_g, Ominv, fac, opts)
 
             # per-side weighted corrector addition: scan weights, pick the
             # best primal and dual weights INDEPENDENTLY
-            trials = [_alphas(be, it, F.add_weighted(d, corr, w, w), opts)
+            trials = [_alphas(be, it, F.add_weighted(d_c, corr, w, w), opts)
                       for w in ws]
             aps = torch.stack([t[0] for t in trials])
             ads = torch.stack([t[1] for t in trials])
-            ip = torch.argmax(aps)
-            idd = torch.argmax(ads)
-            ap_n, wp = aps[ip], ws[ip]
-            ad_n, wd = ads[idd], ws[idd]
+            ap_n, wp = _argmax_take(aps, aps, ws)
+            ad_n, wd = _argmax_take(ads, ads, ws)
 
-            acc_p = ap_n >= tol * a_p
-            acc_d = ad_n >= tol * a_d
-            poor = torch.minimum(a_p, a_d) < opts.max_alpha_small_correctors
+            acc_p = ap_n >= tol * ap_c
+            acc_d = ad_n >= tol * ad_c
             # apply the corrector with per-side weights (zero on the side
             # that did not improve — reference :298-331)
-            d = F.add_weighted(d, corr, torch.where(acc_p, wp, 0.0),
-                               torch.where(acc_d, wd, 0.0))
-            a_p = torch.where(acc_p, ap_n, a_p)
-            a_d = torch.where(acc_d, ad_n, a_d)
-            fp, fd_, poor_h, unconverged = _flags(
-                acc_p, acc_d, poor, torch.minimum(a_p, a_d) < 1.0)
-            accepted = fp or fd_
+            d_new = F.add_weighted(d_c, corr, torch.where(acc_p, wp, 0.0),
+                                   torch.where(acc_d, wd, 0.0))
+            accepted = acc_p | acc_d
             # on rejection: switch to small-pair correctors once, when the
             # step is still poor and the IPM is late enough
-            can_small = (small_allowed and not small_corr
-                         and it_idx >= opts.first_iter_small_correctors
-                         and poor_h)
-            switch_small = not accepted and can_small
-            go = accepted or switch_small
-            n_gondzio += int(accepted)
-            n_small += int(accepted and small_corr)
-            small_corr = small_corr or switch_small
+            can_small = (~small_corr
+                         & (torch.minimum(ap_c, ad_c)
+                            < opts.max_alpha_small_correctors)
+                         & (it_idx >= opts.first_iter_small_correctors)
+                         & small_allowed)
+            switch_small = ~accepted & can_small
+            return (d_new, torch.where(acc_p, ap_n, ap_c),
+                    torch.where(acc_d, ad_n, ad_c), k + accepted.to(k.dtype),
+                    n_small + (accepted & small_corr).to(k.dtype),
+                    small_corr | switch_small, accepted | switch_small)
+
+        false = torch.zeros((), dtype=torch.bool, device=mu.device)
+        d, a_p, a_d, n_gondzio, _, _, _ = dev_while(
+            cond, body, (d, a_p, a_d, n_gondzio, torch.zeros_like(n_gondzio),
+                         false, ~false),
+            # each trip accepts a corrector or, once, switches to small
+            # pairs
+            opts.max_gondzio_correctors + 1)
 
     # ---- final step lengths ----
     a_p_f, a_d_f = _final_steplengths(be, it, d, a_p, a_d, mu, opts)
@@ -156,32 +170,40 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
     # ---- probing (reference compute_probing_factor, :528-627): when the
     # step looks troubled, evaluate residuals and mu at the candidate point
     # and damp the step so neither grows more than 10x ----
-    if opts.probing and _flags(
-            torch.minimum(a_p_f, a_d_f) < opts.probing_trigger)[0]:
-        trial = F.take_step(it, d, a_p_f, a_d_f)
-        rn_t = F.residual_norm(F.compute_residuals(be, trial))
-        rn_0 = F.residual_norm(res)
-        mu_t = F.mu(be, trial)
-        f = torch.ones_like(mu)
-        f = torch.minimum(f, torch.where(
-            rn_t > 10.0 * rn_0,
-            9.0 * rn_0 / torch.clamp_min(rn_t - rn_0, 1e-300) * 0.9995, f))
-        f = torch.minimum(f, torch.where(
-            mu_t > 10.0 * mu,
-            9.0 * mu / torch.clamp_min(mu_t - mu, 1e-300) * 0.9995, f))
-        a_p_f = a_p_f * f
-        a_d_f = a_d_f * f
+    if opts.probing:
+        def probed(ap, ad):
+            trial = F.take_step(it, d, ap, ad)
+            rn_t = F.residual_norm(F.compute_residuals(be, trial))
+            rn_0 = F.residual_norm(res)
+            mu_t = F.mu(be, trial)
+            f = torch.ones_like(mu)
+            f = torch.minimum(f, torch.where(
+                rn_t > 10.0 * rn_0,
+                9.0 * rn_0 / torch.clamp_min(rn_t - rn_0, 1e-300) * 0.9995,
+                f))
+            f = torch.minimum(f, torch.where(
+                mu_t > 10.0 * mu,
+                9.0 * mu / torch.clamp_min(mu_t - mu, 1e-300) * 0.9995, f))
+            return ap * f, ad * f
+
+        a_p_f, a_d_f = dev_cond(
+            torch.minimum(a_p_f, a_d_f) < opts.probing_trigger, probed, None,
+            (a_p_f, a_d_f))
 
     # ---- numerical-troubles path (reference :528-627): when the combined
     # step collapses, retry with a PURE CENTERING direction (sigma = 1,
     # complementarity target mu) and a damped step ----
-    if opts.centering_retry and _flags(
-            (a_p_f + a_d_f) < opts.small_step_threshold)[0]:
-        comp_c = F.comp_rhs_corrector(be, it, tmap(torch.zeros_like, d_aff),
-                                      mu)
-        d = _solve_dir(be, it, res, comp_c, Ominv, fac, opts)
-        ap_c, ad_c = _alphas(be, it, d, opts)
-        a_p_f, a_d_f = 0.7 * ap_c, 0.7 * ad_c
+    if opts.centering_retry:
+        def centered(_d, _ap, _ad):
+            comp_c = F.comp_rhs_corrector(
+                be, it, tmap(torch.zeros_like, d_aff), mu)
+            d_c = _solve_dir(be, it, res, comp_c, Ominv, fac, opts)
+            ap_c, ad_c = _alphas(be, it, d_c, opts)
+            return d_c, 0.7 * ap_c, 0.7 * ad_c
+
+        d, a_p_f, a_d_f = dev_cond(
+            (a_p_f + a_d_f) < opts.small_step_threshold, centered, None,
+            (d, a_p_f, a_d_f))
 
     new_it = F.take_step(it, d, a_p_f, a_d_f)
     stats = StepStats(mu=mu, sigma=sigma, alpha_primal=a_p_f,
@@ -239,8 +261,7 @@ def _weighted_pc_search(be, it, d_aff, d_corr, opts: Options):
                       opts) for w in ws]
     aps = torch.stack([t[0] for t in trials])
     ads = torch.stack([t[1] for t in trials])
-    best = torch.argmax(aps + ads)
-    w_best = ws[best]
+    w_best, a_p, a_d = _argmax_take(aps + ads, ws, aps, ads)
     d = tmap(lambda a, dd: a + w_best * dd, d_aff, d_delta)
-    return d, aps[best], ads[best]
+    return d, a_p, a_d
 

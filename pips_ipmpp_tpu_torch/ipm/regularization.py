@@ -6,11 +6,14 @@ is `factorization_ok` (non-finite factors / wrong pivot signs in the
 quasidefinite LDL), which plays the role of the reference's inertia test;
 the escalation schedules are kept verbatim.
 
-The host loop (ipm/solver.py) drives the strategies, so the state is a
-`(delta_p, delta_d, aux)` triple of Python floats.
+The state is a `(delta_p, delta_d, aux)` triple of scalar tensors on the
+device and every transition is a tensor operation, so one strategy object
+drives both the host loop (ipm/solver.py), which reads the state back
+where it decides, and the fused loop (ipm/device_loop.py), which never
+does.  `attempt` and `mu` may be Python numbers or device tensors.
 
 API:
-  init_state(dtype)             -> state
+  init_state(dtype, device)     -> state
   new_step(state)               -> state   # at the start of a fresh IPM
                                            # iteration (NOT on retries)
   on_failure(state, mu, attempt)-> state   # after a failed factorization
@@ -20,6 +23,10 @@ API:
 from __future__ import annotations
 
 import torch
+
+
+def _zero(dtype, device):
+    return torch.zeros((), dtype=dtype, device=device)
 
 
 class GrowthLadder:
@@ -38,17 +45,18 @@ class GrowthLadder:
         # gentle ladder.
         self.f32_jump_floor = f32_jump_floor
 
-    def init_state(self, dtype):
+    def init_state(self, dtype, device="cpu"):
+        z = _zero(dtype, device)
         floor = self.f32_jump_floor if dtype == torch.float32 else 0.0
-        return (self.base_p, self.base_d, floor)
+        return (z + self.base_p, z + self.base_d, z + floor)
 
     def new_step(self, state):
         return state  # sticky: keep the escalated level
 
     def on_failure(self, state, mu, attempt):
         dp, dd, floor = state
-        return (max(dp * self.growth, floor) + 1e-12,
-                max(dd * self.growth, floor) + 1e-12, floor)
+        return (torch.maximum(dp * self.growth, floor) + 1e-12,
+                torch.maximum(dd * self.growth, floor) + 1e-12, floor)
 
     def deltas(self, state):
         return state[0], state[1]
@@ -68,16 +76,17 @@ class FriedlanderOrban:
         self.increase, self.decrease = increase, decrease
         self.max_delta = max_delta
 
-    def init_state(self, dtype):
+    def init_state(self, dtype, device="cpu"):
+        z = _zero(dtype, device)
         # pre-divided by the decrease factor so the first new_step lands
         # exactly on `initial` (FriedlanderOrbanRegularization.cpp:21)
         v = self.initial / self.decrease
-        return (v, v, 0.0)
+        return (z + v, z + v, z)
 
     def new_step(self, state):
         dp, dd, aux = state
-        return (max(dp * self.decrease, self.minimum),
-                max(dd * self.decrease, self.minimum), aux)
+        return (torch.clamp(dp * self.decrease, min=self.minimum),
+                torch.clamp(dd * self.decrease, min=self.minimum), aux)
 
     def on_failure(self, state, mu, attempt):
         dp, dd, aux = state
@@ -105,24 +114,30 @@ class Ipopt:
     minimum = 1e-20
     maximum = 1e40
 
-    def init_state(self, dtype):
-        return (0.0, 0.0, 0.0)   # aux = primal_regularization_last
+    def init_state(self, dtype, device="cpu"):
+        z = _zero(dtype, device)
+        return (z, z, z)   # aux = primal_regularization_last
 
     def new_step(self, state):
         dp, dd, aux = state
         # remember the shift that produced the accepted factorization and
         # drop back to zero regularization for the fresh matrix
-        return (0.0, 0.0, dp if dp > 0.0 else aux)
+        z = torch.zeros_like(dp)
+        return (z, z, torch.where(dp > 0.0, dp, aux))
 
     def on_failure(self, state, mu, attempt):
         dp, dd, aux = state
+        first = torch.as_tensor(attempt == 0, device=dp.device)
+        mu = torch.as_tensor(mu, dtype=dp.dtype, device=dp.device)
         never_succeeded = aux == 0.0
-        if attempt == 0:
-            dp = (self.initial if never_succeeded
-                  else max(self.minimum, self.decrease * aux))
-            return (dp, float(mu) ** self.barrier_exponent_dual, aux)
-        grow = self.increase_initial if never_succeeded else self.increase
-        return (dp * grow, dd, aux)
+        dp_first = torch.where(never_succeeded, self.initial,
+                               torch.clamp(self.decrease * aux,
+                                           min=self.minimum))
+        dp_nth = dp * torch.where(never_succeeded, self.increase_initial,
+                                  self.increase)
+        return (torch.where(first, dp_first, dp_nth),
+                torch.where(first, mu ** self.barrier_exponent_dual, dd),
+                aux)
 
     def deltas(self, state):
         return state[0], state[1]

@@ -11,6 +11,10 @@ evaluation and one per step.
 On a failed factorization the regularization strategy escalates and the
 iteration is retried — the inertia-free analog of the reference's
 factorize_with_correct_inertia loop (LinearSystem.C:296-325).
+
+`IPMSolver.solve_fused` runs the whole solve on the device instead
+(`ipm/device_loop.py`): on CUDA as one captured CUDA graph per backend
+shape, replayed for every later LP of that shape; on the CPU eagerly.
 """
 from __future__ import annotations
 
@@ -22,7 +26,12 @@ import torch
 
 from pips_ipmpp_tpu_torch.core.options import Options
 from pips_ipmpp_tpu_torch.core.status import TerminationStatus
+from pips_ipmpp_tpu_torch.core.spaces import tmap
+from pips_ipmpp_tpu_torch.ipm import control
 from pips_ipmpp_tpu_torch.ipm import formulation as F
+from pips_ipmpp_tpu_torch.ipm.device_loop import (decode_status,
+                                                  initial_point,
+                                                  solve_on_device)
 from pips_ipmpp_tpu_torch.ipm.mehrotra import ipm_step
 from pips_ipmpp_tpu_torch.ipm.regularization import make_regularization
 
@@ -59,6 +68,9 @@ class SolveResult:
     mu: float
     residual_norm: float
     history: list = field(default_factory=list)
+    # fused solves: graph (captured or eager), turns (loop body runs:
+    # steps + retries + the terminal turn), delta_p, delta_d
+    info: dict = field(default_factory=dict)
 
 
 def _evaluate(be, it) -> list[float]:
@@ -66,32 +78,6 @@ def _evaluate(be, it) -> list[float]:
     res = F.compute_residuals(be, it)
     return torch.stack([F.mu(be, it), F.residual_norm(res),
                         F.duality_gap(be, it), be.objective(it.x)]).tolist()
-
-
-def _initial_point(be, opts: Options):
-    datanorm = be.datanorm()
-    shift = torch.sqrt(datanorm)
-    it = F.initial_iterate(be, shift)
-    # one affine solve from the pushed point, full step, then re-shift
-    # (reference Solver.cpp:16-31)
-    res = F.compute_residuals(be, it)
-    Dx, Ominv = F.kkt_diagonals(be, it)
-    fac = be.factorize(Dx, Ominv, opts.primal_regularization,
-                       opts.dual_regularization)
-    # the init point is a heuristic: if the factorization fails at base
-    # regularization, redo it heavily regularized rather than poisoning
-    # the iterate with NaN
-    if not bool(be.factorization_ok(fac)):
-        big = 1e-6 * (1.0 + float(datanorm))
-        fac = be.factorize(Dx, Ominv, big, big)
-    comp = F.comp_rhs_affine(be, it)
-    rhs = F.assemble_reduced_rhs(be, it, res, comp, Ominv)
-    dx, dy, dz = be.solve_reduced(fac, rhs, opts.refinement_steps)
-    d = F.recover_step(be, it, res, comp, Ominv, rhs, dx, dy, dz)
-    it = F.take_step(it, d, 1.0, 1.0)
-    viol = F.violation(be, it)
-    it = F.shift_bound_variables(be, it, 1e3 + 2.0 * viol)
-    return it, float(datanorm)
 
 
 # Iterates, residuals and refinement run in f64 whatever the LP's dtype;
@@ -114,6 +100,7 @@ class IPMSolver:
         self.be_ctor = be_ctor
         self.opts = opts or Options()
         self.device = torch.device(device)
+        self._graphs: dict = {}     # backend signature -> FusedGraph
         pin_float32_precision()
 
     def solve(self, lp, callback=None) -> SolveResult:
@@ -124,8 +111,9 @@ class IPMSolver:
         be = self.be_ctor(lp)
 
         strat = make_regularization(opts)
-        rstate = strat.init_state(lp.dtype)
-        it, datanorm = _initial_point(be, opts)
+        rstate = strat.init_state(lp.dtype, self.device)
+        it, datanorm = initial_point(be, opts)
+        datanorm = float(datanorm)
 
         history: list[IterationInfo] = []
         status = TerminationStatus.MAX_ITS_EXCEEDED
@@ -166,7 +154,7 @@ class IPMSolver:
             retries = 0
             while not stats_h[0] and retries < opts.max_regularization_retries:
                 rstate = strat.on_failure(rstate, mu_v, retries)
-                if strat.give_up(rstate):
+                if bool(strat.give_up(rstate)):
                     break
                 dp, dd = strat.deltas(rstate)
                 new_it, stats, stats_h = self._step(be, it, dp, dd, k)
@@ -178,11 +166,11 @@ class IPMSolver:
             it = new_it
             n_steps += 1
             if opts.record_history:
-                _, a_p, a_d, sigma = stats_h
+                _, a_p, a_d, sigma, n_gondzio = stats_h
                 history.append(IterationInfo(
                     iteration=k, mu=mu_v, residual_norm=res_v,
                     duality_gap=gap_v, objective=obj_v, alpha_primal=a_p,
-                    alpha_dual=a_d, sigma=sigma, n_gondzio=stats.n_gondzio))
+                    alpha_dual=a_d, sigma=sigma, n_gondzio=int(n_gondzio)))
             if callback is not None:
                 callback(k, it, history[-1] if history else None)
 
@@ -195,7 +183,132 @@ class IPMSolver:
 
     def _step(self, be, it, dp, dd, k):
         new_it, stats = ipm_step(be, it, dp, dd, self.opts, iteration=k)
-        ok, a_p, a_d, sigma = torch.stack([
-            stats.factor_ok.to(stats.mu.dtype), stats.alpha_primal,
-            stats.alpha_dual, stats.sigma]).tolist()
-        return new_it, stats, (bool(ok), a_p, a_d, sigma)
+        dt = stats.mu.dtype
+        ok, a_p, a_d, sigma, n_gondzio = torch.stack([
+            stats.factor_ok.to(dt), stats.alpha_primal, stats.alpha_dual,
+            stats.sigma, stats.n_gondzio.to(dt)]).tolist()
+        return new_it, stats, (bool(ok), a_p, a_d, sigma, n_gondzio)
+
+    # ------------------------------------------------------------------
+    def solve_fused_async(self, lp):
+        """Dispatch one solve of the whole IPM on the device, without a
+        synchronization: returns (iterate, info) as device tensors
+        (`device_loop.solve_on_device`), info["graph"] telling whether the
+        solve ran as a captured graph.
+
+        On CUDA the first call for a backend shape builds and loads every
+        kernel, runs one eager warm-up turn on its backend (lazy
+        initialization inside a conditional body would break the
+        capture), then captures the whole solve, initial point included,
+        into a CUDA graph over that backend's tensors.  Later calls of the
+        same shape copy the new backend's tensors into those and replay
+        the graph: a stream of calls queues replays, and the host waits
+        only where it reads a result.  A capture that fails raises; the
+        solve never runs the eager loop on the card instead.  On the CPU
+        the same loop runs eagerly."""
+        pin_float32_precision()
+        lp = lp.to(self.device).astype(WORKING_DTYPE)
+        be = self.be_ctor(lp)
+        if self.device.type != "cuda":
+            it, info = solve_on_device(be, self.opts)
+            return it, dict(info, graph=False)
+        sig = backend_signature(be)
+        fused = self._graphs.get(sig)
+        if fused is None:
+            fused = self._graphs[sig] = FusedGraph(be, self.opts)
+        return fused.run(be)
+
+    def solve_fused(self, lp) -> SolveResult:
+        """`solve_fused_async`, then one fetch of the result."""
+        it, info = self.solve_fused_async(lp)
+        names = ("status", "iterations", "turns", "mu", "residual_norm",
+                 "objective", "delta_p", "delta_d")
+        vals = dict(zip(names, torch.stack(
+            [info[k].to(torch.float64) for k in names]).tolist()))
+        n = int(vals["iterations"])
+        history = []
+        if self.opts.record_history:
+            h = info["history"]
+            rows = torch.stack([h.mu, h.residual, h.objective,
+                                h.alpha_primal, h.alpha_dual])[:, :n]
+            for i, (mu, rn, obj, a_p, a_d) in enumerate(rows.T.tolist()):
+                history.append(IterationInfo(
+                    iteration=i, mu=mu, residual_norm=rn,
+                    duality_gap=float("nan"), objective=obj,
+                    alpha_primal=a_p, alpha_dual=a_d, sigma=float("nan"),
+                    n_gondzio=-1))
+        return SolveResult(
+            status=decode_status(int(vals["status"])), iterate=it,
+            iterations=n, objective=vals["objective"], mu=vals["mu"],
+            residual_norm=vals["residual_norm"], history=history,
+            info=dict(graph=info["graph"], turns=int(vals["turns"]),
+                      delta_p=vals["delta_p"], delta_d=vals["delta_d"]))
+
+
+def _backend_state(obj, path, out, seen):
+    """Append (path, leaf) for every tensor and plain value `obj` holds,
+    walking attributes, dataclasses, sequences and dicts."""
+    if isinstance(obj, torch.Tensor) or obj is None or isinstance(
+            obj, (bool, int, float, str, torch.dtype, torch.device)):
+        out.append((path, obj))
+        return
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, (list, tuple)):
+        for i, x in enumerate(obj):
+            _backend_state(x, f"{path}[{i}]", out, seen)
+    elif isinstance(obj, dict):
+        for k in obj:
+            _backend_state(obj[k], f"{path}[{k!r}]", out, seen)
+    elif hasattr(obj, "__dict__"):
+        for k, v in vars(obj).items():
+            _backend_state(v, f"{path}.{k}", out, seen)
+    else:
+        raise TypeError(f"{path}: cannot walk a {type(obj).__name__}")
+
+
+def backend_state(be) -> list:
+    """[(path, tensor or plain value)] of everything a backend holds."""
+    out: list = []
+    _backend_state(be, "be", out, set())
+    return out
+
+
+def backend_signature(be) -> tuple:
+    """What a captured solve depends on beyond the values of the tensors:
+    each tensor's shape, dtype and device and every plain value."""
+    return tuple((p, (tuple(v.shape), v.dtype, v.device))
+                 if isinstance(v, torch.Tensor) else (p, v)
+                 for p, v in backend_state(be))
+
+
+class FusedGraph:
+    """One solve of a backend shape captured as a CUDA graph over the
+    tensors of `be`, the backend it was captured on."""
+
+    def __init__(self, be, opts: Options):
+        self.be = be
+        self.state = [v for _, v in backend_state(be)
+                      if isinstance(v, torch.Tensor)]
+        dev = self.state[0].device
+        control.prepare(dev)
+        # warm-up turn: loads the kernels and creates the libraries'
+        # handles and workspaces before the capture
+        solve_on_device(be, opts.replace(max_iterations=1))
+        torch.cuda.synchronize(dev)
+        with control.capture(dev) as self.graph:
+            self.out = solve_on_device(be, opts)
+
+    def run(self, be):
+        """Replay on the data of `be` (same signature); returns copies of
+        the outputs."""
+        if be is not self.be:
+            new = [v for _, v in backend_state(be)
+                   if isinstance(v, torch.Tensor)]
+            for dst, src in zip(self.state, new):
+                dst.copy_(src)
+        self.graph.replay()
+        it, info = tmap(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                        else t, self.out)
+        return it, dict(info, graph=True)

@@ -25,6 +25,12 @@ dual Schur complement).
 
 Solves run Lsolve -> Dsolve -> Ltsolve with adaptive iterative refinement
 on the augmented residual in the working dtype.
+
+Factorization and solves are capture-clean: no read-back, no tensor made
+from host data.  The root shift escalation and the refinement are
+`control.dev_while` loops, conditional nodes when the fused loop is
+captured, and the regularization shifts may be Python numbers or device
+tensors.
 """
 from __future__ import annotations
 
@@ -34,7 +40,8 @@ from typing import Optional
 import torch
 
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
-from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
+from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec, _vdot
+from pips_ipmpp_tpu_torch.ipm.control import dev_while
 from pips_ipmpp_tpu_torch.ipm.formulation import Bounds, ReducedRhs
 from pips_ipmpp_tpu_torch.linalg.ldl import (inverse_from_factors,
                                              ldl_inverse_factors)
@@ -84,14 +91,27 @@ def _bchol_solve(L, b):
 
 
 def _cholesky(S):
-    """Cholesky factor and a health flag; a failed factorization does not
-    raise (the IPM escalates its regularization instead)."""
-    L, info = torch.linalg.cholesky_ex(S)
+    """Cholesky factor of (S + S')/2 and a health flag; a failed
+    factorization does not raise (the IPM escalates its regularization
+    instead).  The JAX package's `jnp.linalg.cholesky` symmetrizes its
+    input the same way: a Schur complement built from inexact leaf solves
+    (the sparse backend's capped CG) is not symmetric, and the lower
+    triangle alone is another matrix."""
+    L, info = torch.linalg.cholesky_ex((S + S.mT) / 2)
     return L, (info == 0).all() & torch.isfinite(L).all()
 
 
 def _absmax(t):
     return t.abs().max() if t.numel() else t.new_zeros(())
+
+
+def scalar(v, like: torch.Tensor) -> torch.Tensor:
+    """A shift as a 0-dim tensor of `like`'s dtype and device: a tensor is
+    converted, a Python number filled in on the device (no copy from the
+    host, which a graph capture refuses)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
 class ArrowBackend:
@@ -200,8 +220,7 @@ class ArrowBackend:
         return XVec(first, blocks)
 
     def objective(self, x: XVec) -> torch.Tensor:
-        return (torch.dot(self.lp.c0, x.first)
-                + torch.dot(self.lp.cN.reshape(-1), x.blocks.reshape(-1)))
+        return _vdot(self.lp.c0, x.first) + _vdot(self.lp.cN, x.blocks)
 
     def datanorm(self) -> torch.Tensor:
         return self.lp.datanorm()
@@ -258,9 +277,8 @@ class ArrowBackend:
         Om = 1.0 / Ominv_blocks                                # [N, mI]
         dt = Einv.dtype
         M = self.M
-        Fd = torch.cat([torch.full((lp.N, mE), delta_d, dtype=dt,
-                                   device=Einv.device),
-                        Om + delta_d], dim=1)                  # [N, mE+mI]
+        dd = scalar(delta_d, Einv)
+        Fd = torch.cat([dd.expand(lp.N, mE), Om + dd], dim=1)  # [N, mE+mI]
         MEi = M * Einv[:, None, :]
         L, Ninv, leaf_ok = self._leaf_factor(M, MEi, Fd)
 
@@ -318,9 +336,10 @@ class ArrowBackend:
         S12 = torch.cat([lp.A0.T, lp.C0.T,
                          lp.F0.T - cxx[:, n0:n0 + mEl],
                          lp.G0.T - cxx[:, n0 + mEl:]], dim=1)  # [n0, nD]
-        F0d = torch.cat([
-            torch.full((m0E,), delta_d, dtype=dt, device=dev), Om0 + delta_d,
-            torch.full((mEl,), delta_d, dtype=dt, device=dev), Oml + delta_d])
+        delta_p = scalar(delta_p, Einv)
+        delta_d = scalar(delta_d, Einv)
+        F0d = torch.cat([delta_d.expand(m0E), Om0 + delta_d,
+                         delta_d.expand(mEl), Oml + delta_d])
         S22 = -torch.diag(F0d)
         S22[yl0:zl0, yl0:zl0] -= cyl[:, n0:n0 + mEl]
         S22[yl0:zl0, zl0:] -= cyl[:, n0 + mEl:]
@@ -328,9 +347,7 @@ class ArrowBackend:
         S22[zl0:, zl0:] -= czl[:, n0 + mEl:]
 
         common = dict(L=L, Ninv=Ninv, Einv=Einv, Om=Om, Ux=Ux, Um=Um,
-                      Om0=Om0, Oml=Oml,
-                      delta_p=torch.as_tensor(delta_p, dtype=dt, device=dev),
-                      delta_d=torch.as_tensor(delta_d, dtype=dt, device=dev))
+                      Om0=Om0, Oml=Oml, delta_p=delta_p, delta_d=delta_d)
 
         if self.ldl_kernel:
             # ---- single quasidefinite root factor+inverse (LDL kernel):
@@ -363,13 +380,18 @@ class ArrowBackend:
                 # system: escalate only the root shift in place instead of
                 # failing the whole factorization (an outer retry would
                 # redo every leaf factorization)
-                while bool(~root_ok & (extra < self.root_escalation_max)):
-                    extra = torch.where(extra == 0.0,
-                                        self.root_escalation_base,
-                                        extra * self.root_escalation_growth)
+                def escalate(carry):
+                    extra_, _, _ = carry
+                    extra_ = torch.where(extra_ == 0.0,
+                                         self.root_escalation_base,
+                                         extra_ * self.root_escalation_growth)
                     # the configured max is the LAST rung tried
-                    extra = torch.clamp(extra, max=self.root_escalation_max)
-                    Sinv, root_ok = _root_factor(extra)
+                    extra_ = torch.clamp(extra_, max=self.root_escalation_max)
+                    return (extra_, *_root_factor(extra_))
+
+                extra, Sinv, root_ok = dev_while(
+                    lambda c: ~c[2] & (c[0] < self.root_escalation_max),
+                    escalate, (extra, Sinv, root_ok), self._root_rungs())
                 # the solved system carries delta_p + extra on the
                 # first-stage primal diagonal and delta_d + extra on the
                 # root dual rows (_aug_residual reads both)
@@ -394,6 +416,17 @@ class ArrowBackend:
         return ArrowFactors(chol1=chol1, S11inv=S11inv, T=T.to(dt),
                             chol2=chol2, Sdinv=Sdinv, Einv0=Einv0, Sinv=None,
                             ok=leaf_ok & root_ok, **common)
+
+    def _root_rungs(self) -> int:
+        """Rungs of the root escalation from 0 up to its max (the loop's
+        bound; its own test stops it there)."""
+        n, extra = 0, 0.0
+        while extra < self.root_escalation_max:
+            extra = min(self.root_escalation_base if extra == 0.0
+                        else extra * self.root_escalation_growth,
+                        self.root_escalation_max)
+            n += 1
+        return n
 
     def factorization_ok(self, fac: ArrowFactors) -> torch.Tensor:
         return fac.ok
@@ -455,20 +488,22 @@ class ArrowBackend:
                                    (r[2], r[3], r[0], r[1])]).max()
                 return r, nrm
 
-            res, nrm = resid_norm(state)
-            prev = torch.full_like(nrm, float("inf"))
-            k = 0
-            while k < refinement_steps and bool(
-                    (nrm > 1e-11 * rhs_norm) & (nrm < 0.25 * prev)):
-                corr = self._solve_core(fac, *res)
-                new = tuple(s + c for s, c in zip(state, corr))
-                res, nrm2 = resid_norm(new)
+            def refine(carry):
+                state_, res_, nrm_, _ = carry
+                corr = self._solve_core(fac, *res_)
+                new = tuple(s + c for s, c in zip(state_, corr))
+                res2, nrm2 = resid_norm(new)
                 # keep the better iterate if refinement diverged
-                worse = nrm2 > nrm
-                state = tuple(torch.where(worse, s, n)
-                              for s, n in zip(state, new))
-                prev, nrm = nrm, torch.where(worse, nrm, nrm2)
-                k += 1
+                worse = nrm2 > nrm_
+                return (tuple(torch.where(worse, s, n)
+                              for s, n in zip(state_, new)), res2,
+                        torch.where(worse, nrm_, nrm2), nrm_)
+
+            res, nrm = resid_norm(state)
+            state, _, _, _ = dev_while(
+                lambda c: (c[2] > 1e-11 * rhs_norm) & (c[2] < 0.25 * c[3]),
+                refine, (state, res, nrm, torch.full_like(nrm, float("inf"))),
+                refinement_steps)
 
         dx_first, dx_blocks, d0, gm = state
         # unpack: d0 = [yhat0, zhat0, yhat_l, zhat_l]; gm = [yhat_i, zhat_i]

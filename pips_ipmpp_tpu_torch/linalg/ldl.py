@@ -104,6 +104,7 @@ def _ldl_inverse_factors_cuda(A: torch.Tensor):
         raise RuntimeError(f"ldl_inverse_f32 launch failed: CUDA error {rc} "
                            f"at B={B}, a={a}")
     ldl_inverse_factors.launches += 1
+    ldl_inverse_factors.captured += torch.cuda.is_current_stream_capturing()
     return X, d
 
 
@@ -113,7 +114,8 @@ def ldl_inverse_factors(A: torch.Tensor):
     X is L^{-1} (unit lower triangular, zero above the diagonal), d the
     pivot vector [B, a] (negative entries are fine).  CPU tensors run the
     plain version; CUDA tensors launch the kernel and count the launch in
-    `ldl_inverse_factors.launches`."""
+    `ldl_inverse_factors.launches` (one into a graph being captured also
+    in `ldl_inverse_factors.captured`)."""
     if A.device.type == "cpu":
         return ldl_inverse_factors_ref(A)
     if A.device.type == "cuda":
@@ -122,6 +124,7 @@ def ldl_inverse_factors(A: torch.Tensor):
 
 
 ldl_inverse_factors.launches = 0
+ldl_inverse_factors.captured = 0   # of those, into a captured CUDA graph
 
 
 def inverse_from_factors(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

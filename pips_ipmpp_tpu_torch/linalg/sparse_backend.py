@@ -29,7 +29,8 @@ import torch
 
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
-from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+from pips_ipmpp_tpu_torch.ipm.control import capturing, dev_while
+from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend, scalar
 from pips_ipmpp_tpu_torch.linalg.spmv import (ell_mv, ell_mv_multi,
                                               sell_from_ell)
 
@@ -40,25 +41,25 @@ def batched_pcg(apply_A, B, dinv, max_iters: int, tol: float):
 
     Stops when every column's residual norm is below tol * ||b|| (or at
     max_iters), tested before every iteration as the JAX package's
-    while_loop does: one read-back per test, counted in
-    `batched_pcg.readbacks`.  Calls are counted in `batched_pcg.calls`,
-    those that stop at max_iters in `batched_pcg.capped`.  Zero columns
-    take alpha = 0 and stay zero."""
+    while_loop does: a `control.dev_while`.  Eager, each test is one
+    read-back, counted in `batched_pcg.readbacks`; calls are counted in
+    `batched_pcg.calls`, those that stop at max_iters in
+    `batched_pcg.capped`.  Captured, the loop is a WHILE node with no
+    read-back; nothing is counted and the iteration count returned is
+    None.  Zero columns take alpha = 0 and stay zero."""
     tiny = torch.finfo(B.dtype).tiny
-    X = torch.zeros_like(B)
-    R = B
-    Z = dinv[:, :, None] * R
-    P = Z
-    rz = (R * Z).sum(1, keepdim=True)
+    Z = dinv[:, :, None] * B
+    rz = (B * Z).sum(1, keepdim=True)
     bnorm = torch.sqrt((B * B).sum(1, keepdim=True))
     thresh = (tol * torch.clamp(bnorm, min=tiny)) ** 2
+    trips = [0]
 
-    def unconverged():
-        batched_pcg.readbacks += 1
-        return bool(((R * R).sum(1, keepdim=True) > thresh).any())
+    def unconverged(carry):
+        R = carry[1]
+        return ((R * R).sum(1, keepdim=True) > thresh).any()
 
-    k = 0
-    while k < max_iters and unconverged():
+    def step(carry):
+        X, R, P, rz = carry
         Ap = apply_A(P)
         den = (P * Ap).sum(1, keepdim=True)
         alpha = torch.where(den > tiny, rz / torch.clamp(den, min=tiny), 0.0)
@@ -67,9 +68,15 @@ def batched_pcg(apply_A, B, dinv, max_iters: int, tol: float):
         Z = dinv[:, :, None] * R
         rz2 = (R * Z).sum(1, keepdim=True)
         beta = torch.where(rz > tiny, rz2 / torch.clamp(rz, min=tiny), 0.0)
-        P = Z + beta * P
-        rz = rz2
-        k += 1
+        trips[0] += 1
+        return X, R, Z + beta * P, rz2
+
+    X, _, _, _ = dev_while(unconverged, step, (torch.zeros_like(B), B, Z, rz),
+                           max_iters)
+    if capturing(B):
+        return X, None
+    k = trips[0]
+    batched_pcg.readbacks += k + (k < max_iters)
     batched_pcg.calls += 1
     batched_pcg.capped += k == max_iters
     return X, k
@@ -169,7 +176,7 @@ class SparseArrowBackend(ArrowBackend):
     # ---- condensed-system tools (factor dtype) ----------------------------
     def _Fd(self, Om, delta_d):
         lp = self.lp
-        dd = torch.as_tensor(delta_d, dtype=Om.dtype, device=Om.device)
+        dd = scalar(delta_d, Om)
         return torch.cat([dd.expand(lp.N, lp.mE), Om + dd], dim=1)
 
     def _neq_apply(self, Einv, Fd, V):

@@ -245,6 +245,7 @@ def _ell_spmm_cuda(op, X, alpha, beta, Z):
         raise RuntimeError(f"ell_spmm launch failed: CUDA error {rc} at "
                            f"{op.slots} slots [{N}, {m}] x [{N}, {n}, {c}]")
     ell_spmm.launches += 1
+    ell_spmm.captured += torch.cuda.is_current_stream_capturing()
     key = (op.name, c)
     ell_spmm.launches_by[key] = ell_spmm.launches_by.get(key, 0) + 1
     return Y
@@ -257,7 +258,8 @@ def ell_spmm(op, X: torch.Tensor, alpha=None, beta=None,
     ids must lie in [0, n) (`sell_from_ell` checks it once).  CPU tensors
     run the plain version on the padded ELL; CUDA tensors launch the kernel
     on the slices, on the current stream, and count the launch in
-    `ell_spmm.launches` and `ell_spmm.launches_by[(op.name, c)]`."""
+    `ell_spmm.launches` and `ell_spmm.launches_by[(op.name, c)]` (one into
+    a graph being captured also in `ell_spmm.captured`)."""
     _check(op, X, alpha, beta, Z)
     if X.device.type == "cpu":
         ell = op.ell if isinstance(op, SellEll) else op
@@ -268,6 +270,7 @@ def ell_spmm(op, X: torch.Tensor, alpha=None, beta=None,
 
 
 ell_spmm.launches = 0
+ell_spmm.captured = 0   # of those, into a captured CUDA graph
 ell_spmm.launches_by = {}
 
 

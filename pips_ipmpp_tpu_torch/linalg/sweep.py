@@ -153,6 +153,7 @@ def _sweep_cuda(A: torch.Tensor):
         raise RuntimeError(f"sweep_inverse_f32 launch failed: CUDA error "
                            f"{rc} at B={B}, a={a}")
     sweep_inverse.launches += 1
+    sweep_inverse.captured += torch.cuda.is_current_stream_capturing()
     return Ainv, d
 
 
@@ -175,3 +176,4 @@ def sweep_inverse(A: torch.Tensor):
 
 
 sweep_inverse.launches = 0
+sweep_inverse.captured = 0   # of those, into a captured CUDA graph

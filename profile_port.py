@@ -4,6 +4,7 @@
     python3 profile_port.py --ldl [--ldl-against DIR]
     python3 profile_port.py --ell [--ell-against DIR]
     python3 profile_port.py --sweep [--sweep-against DIR]
+    python3 profile_port.py --fused [path ...] [--reps R]
 
 Paths are `chip_smoke.paths()`: `flagship`, `bigleaf`, `sparse_f32`,
 `sparse_f64` and `sweep` (default: every path), each solved by the
@@ -21,9 +22,17 @@ seconds, iterations per second, the hand-written kernels' launch counts
 calls and capped calls of the timed solve; for the window, kernel
 launches (`*LaunchKernel*` runtime calls) and device time per iteration,
 the busy share (device time over the window's host-clock time) and the
-kernels that took the most device time; and the iterations' mu,
+kernels that took the most device time, every CUDA runtime call's count
+and host milliseconds per iteration; and the iterations' mu,
 residual, step lengths and Gondzio correctors.  The last
 line is the card's name and power limit.
+
+`--fused` times the fused loop (`solve_fused`) instead, on
+`chip_smoke.FUSED_PATHS` (default: all; run one per process: a third
+profiler session in one process faulted on the sparse graph's replay,
+ROADMAP.md §3, F4): per path one JSON line with the first call (capture included),
+`--reps` warm solves, the graph's replay alone (CUDA events), the busy
+share and the host's CUDA calls per warm solve.
 
 `--ldl` times the LDL kernel instead, at `chip_smoke.LDL_SHAPES`: per
 shape one JSON line with its device time per call (profiler), each of its
@@ -75,34 +84,18 @@ from pathlib import Path
 import torch
 
 import chip_smoke as cs
-from pips_ipmpp_tpu_torch import PIPSIPMppTorchInterface, _build
+from pips_ipmpp_tpu_torch import _build
 from pips_ipmpp_tpu_torch.core.options import ScalerType
-from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
+from pips_ipmpp_tpu_torch.ipm.solver import pin_float32_precision
 from pips_ipmpp_tpu_torch.linalg import ldl, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
                                                         batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
 
 
-def setup(make, cg_iters):
-    """(LP on the card, IPMSolver) of one path: for a facade path the LP
-    scaled and the solver built as the facade does."""
-    lp, opts, backend = make()
-    if backend is None:
-        if cg_iters is not None:
-            raise ValueError("--cg-iters needs a path with its own backend")
-        iface = PIPSIPMppTorchInterface(lp, opts, device=cs.DEVICE)
-        lp, solver = iface.lp, iface._solver
-        if opts.scaler != ScalerType.NONE:
-            lp = make_scaler(opts.scaler).scale(lp)
-        return lp, solver
-    if cg_iters is not None:
-        backend = partial(backend, cg_iters=cg_iters)
-    return lp.to(cs.DEVICE), IPMSolver(backend, opts, device=cs.DEVICE)
-
-
 def profile(name, make, window, cg_iters):
-    lp, solver = setup(make, cg_iters)
+    st = cs.setup(make, cg_iters)
+    lp, solver = st.lp, st.solver
     if window:
         solver.solve(lp)                               # warm-up
         torch.cuda.synchronize()
@@ -155,6 +148,11 @@ def profile_window(lp, solver, it, window):
     window_s = clock["t1"] - clock["t0"]
     n = k1 - k0
     launches = sum(e.count for e in events if "LaunchKernel" in e.key)
+    # every CUDA runtime call of the window: calls and host milliseconds
+    # per iteration (a copy from pageable memory or a synchronize holds
+    # the host until the device has drained its queue)
+    runtime = {e.key: [e.count / n, e.cpu_time_total / 1e3 / n]
+               for e in events if e.key.startswith("cuda")}
     device = [e for e in events if e.self_device_time_total > 0]
     device_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
@@ -162,9 +160,42 @@ def profile_window(lp, solver, it, window):
                 launches_per_iteration=launches / n,
                 device_ms_per_iteration=device_ms / n,
                 busy_share=device_ms / 1e3 / window_s,
+                runtime_per_iteration=runtime,
                 top_device=[dict(name=e.key[:80], count=e.count,
                                  ms=e.self_device_time_total / 1e3)
                             for e in top])
+
+
+def profile_fused(name, reps):
+    """One fused path (`chip_smoke.FUSED_PATHS`): the first call (build,
+    warm-up turn, capture and solve), then `reps` warm solves timed on the
+    host clock (each ends in the fetch of its result), the graph's replay
+    alone timed with CUDA events (`chip_smoke.graph_ms`), and the host's
+    CUDA calls of one more warm solve under the profiler."""
+    path, over = cs.FUSED_PATHS[name]
+    st = cs.setup(cs.paths()[path], **over)
+    cs.reset_counts()
+    t0 = time.perf_counter()
+    res = st.solver.solve_fused(st.lp)
+    first_s = time.perf_counter() - t0
+    captured = cs.read_captured()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        st.solver.solve_fused(st.lp)
+        times.append(time.perf_counter() - t0)
+    solve_s = sorted(times)[len(times) // 2]
+    dev_ms = cs.graph_ms(st.solver)
+    calls = cs.host_launches(lambda: st.solver.solve_fused(st.lp))
+    it = res.iterations
+    print(json.dumps(dict(
+        path=name, fused=True, graph=res.info["graph"],
+        status=res.status.name, iterations=it, turns=res.info["turns"],
+        objective=res.objective, first_solve_s=first_s, solve_s=solve_s,
+        solve_s_all=times, iter_per_s=it / solve_s,
+        captured_launches=captured, host_calls_per_solve=calls,
+        graph_ms=dev_ms, device_ms_per_iteration=dev_ms / max(it, 1),
+        busy_share=dev_ms / 1e3 / solve_s)), flush=True)
 
 
 def _other_lib(root, source, stem):
@@ -439,6 +470,11 @@ def main(argv):
     ap.add_argument("--sweep-against", metavar="DIR", default=None,
                     help="with --sweep: also time DIR's sweep kernel, in "
                          "turns")
+    ap.add_argument("--fused", nargs="*", metavar="path", default=None,
+                    help=f"time the fused loop (solve_fused) on "
+                         f"{', '.join(cs.FUSED_PATHS)} (default: all)")
+    ap.add_argument("--reps", type=int, default=3,
+                    help="with --fused: warm solves timed")
     args = ap.parse_args(argv)
     unknown = sorted(set(args.paths) - set(table))
     if unknown:
@@ -451,7 +487,13 @@ def main(argv):
         ell_table(args.ell_against)
     if args.sweep:
         sweep_table(args.sweep_against)
-    kernels = args.ldl or args.ell or args.sweep
+    if args.fused is not None:
+        bad = sorted(set(args.fused) - set(cs.FUSED_PATHS))
+        if bad:
+            ap.error(f"unknown fused paths {bad}")
+        for name in args.fused or list(cs.FUSED_PATHS):
+            profile_fused(name, args.reps)
+    kernels = args.ldl or args.ell or args.sweep or args.fused is not None
     for name in args.paths or ([] if kernels else list(table)):
         profile(name, table[name], args.window, args.cg_iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
