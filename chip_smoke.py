@@ -27,10 +27,19 @@ read just after (the ELL kernel's also per operator and width):
     does not read, the same loop run eagerly: status, iterations,
     objective to 1e-6) and to the f64 objective, with the host-side CUDA
     calls of one warm solve;
+  - the fused batch (`IPMSolver.solve_fused_batch_async`, B LPs of the
+    bench's stream as one captured graph over a leading batch axis): the
+    flagship at B = 8 and the big leaf at B = 4, each LP held to its own
+    `solve_fused` (status, iterations, objective to 1e-8), timed against
+    the stream of the same LPs through `solve_fused_async`, in turns,
+    and the LDL kernel at the batches' leaf and root shapes;
   - the 26 GAMSsmall golden instances in f64 through both loops, every
     fused solve captured and held to its host loop, both loops to
     PIPS-IPM++'s recorded acceptance (`GOLDEN_OPEN` names the instances of
-    an open fault that may miss it).
+    an open fault that may miss it; none now), the root's f64 Cholesky
+    through the potf2 kernel (LAPACK's order), which is also checked
+    against its plain version at the root shapes, and launched by every
+    f64 reference solve above.
 
 `paths()` defines the solves; `profile_port.py` profiles the same ones.
 
@@ -43,6 +52,7 @@ Needs one CUDA device; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -61,7 +71,7 @@ from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.io.synthetic import (random_arrowhead_lp,
                                                random_sparse_arrowhead_lp)
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
-from pips_ipmpp_tpu_torch.linalg import ldl, spmv, sweep
+from pips_ipmpp_tpu_torch.linalg import ldl, potf2, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
                                                         batched_pcg)
@@ -86,6 +96,14 @@ LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
 # of 1701
 SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
                 (64, 1024, 1024), (2, 2048, 2048)]
+# (batch, edge) of the f64 two-level root's Cholesky blocks (S11 and the
+# dual Schur complement) that the potf2 kernel factors: the flagship's and
+# the big leaf's (n0 = 64, nD = 128), the same at the batch of 8, the
+# 8 x 8192 sparse instance's (16, 16), the two golden instances of F3
+# (dual blocks of 14 and 11), and one edge past the kernel's shared-memory
+# path (300 > 237), which keeps its running sums in device memory
+POTF2_SHAPES = [(1, 64), (1, 128), (8, 64), (8, 128), (1, 16), (1, 14),
+                (1, 11), (1, 300)]
 # the JAX package's reference-scale sparse acceptance instance
 # (tests/test_sparse.py:186-201) and its HiGHS f64 oracle objective
 SPARSE = dict(N=8, n=8192, mE=4096, mI=4096, nnz_per_row=10, n0=16, m0E=4,
@@ -187,7 +205,8 @@ def bound(nbytes, flops, dtype):
 # ---- launch counts ---------------------------------------------------------
 COUNTED = {"ldl_inverse_f32": ldl.ldl_inverse_factors,
            "ell_spmm": spmv.ell_spmm,
-           "sweep_inverse": sweep.sweep_inverse}
+           "sweep_inverse": sweep.sweep_inverse,
+           "potf2_f64": potf2.potf2}
 
 
 def reset_counts():
@@ -241,11 +260,11 @@ def rel_err(inv, ref_inv):
     return float(diff / ref_inv.abs().amax()), float(diff)
 
 
-def check_ldl_kernel():
+def check_ldl_kernel(shapes=LDL_SHAPES, tag="ldl_check"):
     lib = _build.load()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = []
-    for B, a, n_pos in LDL_SHAPES:
+    for B, a, n_pos in shapes:
         A = ldl_input(B, a, n_pos, gen)
         A32 = A.float().contiguous()
         Xr, dr = ldl.ldl_inverse_factors_ref(A)            # f64 reference
@@ -281,13 +300,52 @@ def check_ldl_kernel():
                    bound_ms=bound_ms, bound_by=bound_by,
                    nb=lib.ldl_inverse_nb(a),
                    cuda_launches_per_call=lib.ldl_inverse_launches(a))
-        print("ldl_check", json.dumps(row), flush=True)
+        print(tag, json.dumps(row), flush=True)
         require(err_k <= 4.0 * err_p + 1e-6,
                 f"LDL kernel error {err_k:.3e} > 4 x plain {err_p:.3e} + 1e-6 "
                 f"at {[B, a, a]}")
         require(signs and ok, f"LDL kernel pivot signs differ at {[B, a, a]}")
         del A, A32, Xr, dr, ref_inv, Xk, dk, Xp, dp
         torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
+def check_potf2_kernel():
+    """The f64 root Cholesky kernel against its plain version on the card
+    (the same dpotf2 order in torch operations) at the root shapes: the
+    same factor to 1e-14 of its largest entry (the arithmetic is the same,
+    so the two are expected to agree exactly: `exact` says whether they
+    do), the same health flags, and the factor's backward error.  Its
+    `loop_ms` (CUDA events over 50 back-to-back calls) is the time the
+    kernels line gives: the profiler's device time of a one-CTA kernel
+    read 0.448 and 0.0448 ms at [1,128,128] in two runs on the same card,
+    while one call between CUDA events took 0.48 ms in both."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rows = []
+    for B, n in POTF2_SHAPES:
+        A = ldl_input(B, n, n, gen)
+        Lk, ik = potf2.potf2(A)
+        torch.cuda.synchronize()
+        Lp, ip = potf2.cholesky_potf2_ref(A)
+        diff = float((Lk - Lp).abs().amax())
+        scale = float(Lp.abs().amax())
+        backward = float((Lk @ Lk.mT - A).abs().amax() / A.abs().amax())
+        times = timings(lambda: potf2.potf2(A),
+                        lambda: potf2.cholesky_potf2_ref(A),
+                        lambda: torch.linalg.cholesky_ex(A), 10, 1)
+        times["loop_ms"] = loop_ms(lambda: potf2.potf2(A), 50)
+        # A in, L out (n^2 doubles each) and n^3/3 flops per matrix
+        bound_ms, bound_by = bound(2 * B * n * n * 8 + B * 4,
+                                   B * n ** 3 / 3, torch.float64)
+        row = dict(shape=[B, n, n], max_abs_err=diff, exact=diff == 0.0,
+                   rel_err=diff / scale, info_equal=bool(torch.equal(ik, ip)),
+                   all_ok=bool((ik == 0).all()), backward_err=backward,
+                   **times, bound_ms=bound_ms, bound_by=bound_by)
+        print("potf2_check", json.dumps(row), flush=True)
+        require(diff <= 1e-14 * scale and row["info_equal"]
+                and row["all_ok"],
+                f"potf2 kernel off its plain version at {[B, n, n]}: {row}")
         rows.append(row)
     return rows
 
@@ -659,6 +717,182 @@ FUSED_PATHS = {"flagship": ("flagship", {}), "bigleaf": ("bigleaf", {}),
                                            dict(residual_update_every=4))}
 
 
+# the fused batch (`IPMSolver.solve_fused_batch_async`): name -> (paths()
+# entry, B).  The LPs are the bench's batch of its stream
+# (`stream_lps`); the big leaf's B = 4 is the bench's half stream of 8
+# scaled to its 16x larger leaves.
+BATCH_PATHS = {"flagship_batch8": ("flagship", 8),
+               "bigleaf_batch4": ("bigleaf", 4)}
+# the LDL kernel at the batches' shapes: all B N leaves in one call and
+# the B roots in one call
+BATCH_LDL_SHAPES = [(512, 256, 256), (8, 192, 64), (256, 1024, 1024),
+                    (4, 192, 64)]
+
+
+def stream_lps(lp, k):
+    """The bench's stream of k LPs from one (bench.py:_stream_lps): costs
+    times 1 + 1e-5 i."""
+    return [dataclasses.replace(lp, c0=lp.c0 * (1.0 + 1e-5 * i),
+                                cN=lp.cN * (1.0 + 1e-5 * i))
+            for i in range(k)]
+
+
+def batch_rows(info) -> list:
+    """Per LP [status, iterations, objective, turns] of a batch's info, in
+    one fetch."""
+    return torch.stack([info["status"].double(),
+                        info["iterations"].double(), info["objective"],
+                        info["turns"].double()], -1).tolist()
+
+
+def batch_graph(solver, B):
+    """The solver's captured graph of a batch of B."""
+    return next(g for g in solver._graphs.values()
+                if g.be.batch_shape == (B,))
+
+
+# batches whose f32 solves turn on rounding (ROADMAP.md §3, R1): an LP of
+# such a batch may part from its single solve by up to BATCH_ROUNDING_RTOL
+# relative in the objective (the singles part by up to 1.2e-6 under
+# rounding noise; neighbouring LPs of `stream_lps` lie ~1e-5 apart), its
+# objective must be nearer its own single's than any other LP's, and it
+# may take one iteration more or fewer than its single solve only where,
+# in the same run, that single solve takes the batch's count under
+# BATCH_NOISE relative noise on its data (`noise_counts`: draws until one
+# does, at most BATCH_NOISE_DRAWS; on the card each flagship single took
+# another count in 1 to 3 draws of 24, so 128 draws all miss a count met
+# once in 24 with probability 0.4%)
+BATCH_ROUNDING = {"flagship_batch8": "R1", "bigleaf_batch4": "R1"}
+BATCH_ROUNDING_RTOL = 3e-6
+BATCH_NOISE = 1e-16
+BATCH_NOISE_DRAWS = 128
+
+
+def noisy_lp(lp, gen):
+    """`lp` in f64 with each data entry (not the 0/1 masks) times
+    1 + BATCH_NOISE E, E standard normal drawn from `gen`."""
+    lp = lp.astype(torch.float64)
+
+    def jitter(t):
+        return t * (1 + BATCH_NOISE * torch.randn(
+            t.shape, generator=gen, dtype=t.dtype, device=t.device))
+    return dataclasses.replace(lp, **{
+        f.name: jitter(getattr(lp, f.name)) for f in dataclasses.fields(lp)
+        if not f.name.startswith("i")})
+
+
+def noise_counts(solver, lp, target, seed, draws=BATCH_NOISE_DRAWS):
+    """Iteration counts of `lp`'s single fused solve (the captured single
+    graph, replayed) under `noisy_lp`, draw by draw, until one takes
+    `target` iterations or `draws` are spent."""
+    gen = torch.Generator(device=lp.device).manual_seed(seed)
+    seen = []
+    while len(seen) < draws and target not in seen:
+        seen.append(solver.solve_fused(noisy_lp(lp, gen)).iterations)
+    return seen
+
+
+def fused_batch(name, st: Setup, B, kernels):
+    """B LPs of the bench's stream (`stream_lps`) as one captured batch
+    graph, each LP held to its own `solve_fused` (the single graph,
+    replayed): the same status and iterations, the objective within 1e-8
+    relative; in a batch of `BATCH_ROUNDING` (f32 solves that turn on
+    rounding) within BATCH_ROUNDING_RTOL and nearer its own single's than
+    any other LP's, and one iteration apart only where its single takes
+    the batch's count under noise (`noise_counts`).  The same LPs in
+    reverse order must give each LP the same answer, bit for bit.  Then,
+    warm, the stream of the same LPs through `solve_fused_async` (queued,
+    one fetch) and the batch, in turns (stream, batch, batch, stream),
+    each timed on the host clock to its fetch; the batch graph's replay
+    alone (CUDA events), per loop trip; the first call (warm-up turn,
+    capture and solve); and the peak device memory of the first call."""
+    t_phase = time.perf_counter()
+    lps = stream_lps(st.lp, B)
+    singles = [st.solver.solve_fused(lp) for lp in lps]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, info = st.solver.solve_fused_batch_async(lps)
+    rows = batch_rows(info)
+    first_s = time.perf_counter() - t0
+    counts, captured = read_counts(), read_captured()
+    peak = torch.cuda.max_memory_allocated()
+    times = {"stream": [], "batch": []}
+    for turn in ("stream", "batch", "batch", "stream"):
+        t0 = time.perf_counter()
+        if turn == "stream":
+            outs = [st.solver.solve_fused_async(lp) for lp in lps]
+            torch.stack([o[1]["iterations"] for o in outs]).tolist()
+        else:
+            _, warm_info = st.solver.solve_fused_batch_async(lps)
+            warm = batch_rows(warm_info)
+        times[turn].append(time.perf_counter() - t0)
+    dev_ms = cuda_ms(batch_graph(st.solver, B).graph.replay, 1)
+    batch_s = statistics.median(times["batch"])
+    stream_s = statistics.median(times["stream"])
+    iters = sum(int(r[1]) for r in rows)
+    trips = max(int(r[3]) for r in rows)
+    _, rev_info = st.solver.solve_fused_batch_async(lps[::-1])
+    reversed_rows = batch_rows(rev_info)[::-1]
+    rounding = name in BATCH_ROUNDING
+    objs = [s.objective for s in singles]
+    per_lp = []
+    for i, (s, r) in enumerate(zip(singles, rows)):
+        rel = abs(r[2] - s.objective) / max(abs(s.objective), 1.0)
+        nearest = min(range(B), key=lambda j: abs(r[2] - objs[j]))
+        noisy = (noise_counts(st.solver, lps[i], int(r[1]), seed=i)
+                 if rounding and abs(int(r[1]) - s.iterations) == 1
+                 else [])
+        per_lp.append(dict(lp=i, status=int(r[0]), iterations=int(r[1]),
+                           turns=int(r[3]), single_status=s.status.name,
+                           single_iterations=s.iterations, objective=r[2],
+                           objective_rel_single=rel, nearest_single=nearest,
+                           noisy_single_iterations=noisy,
+                           exact=(int(r[1]) == s.iterations
+                                  and rel <= 1e-8)))
+    out = dict(case=name, B=B, graph=info["graph"],
+               graphs=len(st.solver._graphs), lps=per_lp,
+               first_solve_s=first_s, capture_s=first_s - batch_s,
+               batch_s=batch_s, batch_s_all=times["batch"],
+               stream_s=stream_s, stream_s_all=times["stream"],
+               batch_solves_per_s=B / batch_s,
+               stream_solves_per_s=B / stream_s,
+               batch_iter_per_s=iters / batch_s,
+               stream_iter_per_s=sum(s.iterations for s in singles)
+               / stream_s,
+               graph_ms=dev_ms, loop_trips=trips,
+               graph_ms_per_trip=dev_ms / trips,
+               peak_memory_gb=peak / 1e9, launches=counts,
+               captured_launches=captured,
+               rounding_fault=BATCH_ROUNDING.get(name),
+               reversed_same=reversed_rows == rows,
+               phase_s=time.perf_counter() - t_phase)
+    print("fused_batch", json.dumps(out), flush=True)
+    require(info["graph"], f"{name}: the batch was not captured")
+    require(len(st.solver._graphs) == 2,
+            f"{name}: {len(st.solver._graphs)} graphs, not the single "
+            f"solve's and the batch's")
+    for k in kernels:
+        require(captured[k] > 0, f"{name}: no {k} launch in the graph")
+    for r in per_lp:
+        require(r["status"] == 1
+                and r["single_status"] == "SUCCESSFUL_TERMINATION",
+                f"{name}: LP {r['lp']} did not succeed: {r}")
+        require(r["exact"] or (
+            rounding and r["objective_rel_single"] <= BATCH_ROUNDING_RTOL
+            and r["nearest_single"] == r["lp"]
+            and (r["iterations"] == r["single_iterations"]
+                 or r["iterations"] in r["noisy_single_iterations"])),
+            f"{name}: LP {r['lp']} of the batch off its single solve: {r}")
+    require(reversed_rows == rows,
+            f"{name}: the LPs in reverse order gave {reversed_rows}, in "
+            f"order {rows}")
+    require(warm == rows, f"{name}: the replay gave {warm}, the first "
+                          f"solve {rows}")
+    return counts, out
+
+
 def graph_ms(solver, reps=3):
     """Device milliseconds of one replay of the solver's captured graph
     (CUDA events around the replay alone; its inputs as they stand), the
@@ -795,12 +1029,12 @@ def fused_stream(st: Setup, seeds):
     return out
 
 
-# golden instances that may miss the acceptance on the card: the open
-# fault of ROADMAP.md §3 that they show (F3: a root block singular to
-# working precision, whose factor and solution the card's Cholesky
-# decides otherwise than the CPU's)
-GOLDEN_OPEN = {"hier_approach_4blocks_2by2": "F3",
-               "singletonInequalityColumn_B1": "F3"}
+# golden instances that may miss the acceptance on the card, each with the
+# open fault of ROADMAP.md §3 that it shows.  None since the root's f64
+# Cholesky runs in LAPACK's order on the card (the potf2 kernel), which
+# closed F3: hier_approach_4blocks_2by2 and singletonInequalityColumn_B1
+# missed it under cuSOLVER's potrf.
+GOLDEN_OPEN: dict = {}
 
 
 def golden_phase():
@@ -857,9 +1091,10 @@ def golden_phase():
 
 
 def dense_path(name, f32_run, f64_run, n_vars, kernel):
-    """The f64 reference (no kernel launch allowed), then the f32 path."""
-    ref, ref_counts = drive(f"{name} f64 reference", f64_run, [])
-    require(not any(ref_counts.values()),
+    """The f64 reference (no kernel launch allowed but the f64 root
+    Cholesky's), then the f32 path."""
+    ref, ref_counts = drive(f"{name} f64 reference", f64_run, ["potf2_f64"])
+    require(not any(v for k, v in ref_counts.items() if k != "potf2_f64"),
             f"{name}: the f64 reference launched {ref_counts}")
     require(ref["status"] == TerminationStatus.SUCCESSFUL_TERMINATION,
             f"{name}: f64 reference status {ref['status']}")
@@ -899,6 +1134,7 @@ def main():
     ldl_rows = check_ldl_kernel()
     ell_rows = check_ell_kernel(slp)
     sweep_rows = check_sweep_kernel()
+    potf2_rows = check_potf2_kernel()
 
     total = dict.fromkeys(COUNTED, 0)
 
@@ -973,19 +1209,35 @@ def main():
             reset_counts()
             fused_stream(st, range(4))
             add(read_counts())
+        # ---- 9b. the fused batch of this path, against its singles ----
+        for bname, (bpath, B) in BATCH_PATHS.items():
+            if bpath == name:
+                counts, _ = fused_batch(bname, st, B, kernels)
+                add(counts)
         del st
         torch.cuda.empty_cache()
 
-    # ---- 10. the golden instances, f64, both loops ----
+    # ---- 9c. the LDL kernel at the batches' leaf and root shapes ----
+    ldl_rows += check_ldl_kernel(BATCH_LDL_SHAPES, "ldl_batch_check")
+
+    # ---- 10. the golden instances, f64, both loops: the root through the
+    #          potf2 kernel, also inside every captured graph ----
     reset_counts()
     golden = golden_phase()
+    golden.update(launches=read_counts(), captured_launches=read_captured())
     print("golden_summary", json.dumps(golden), flush=True)
+    require(golden["launches"]["potf2_f64"] > 0
+            and golden["captured_launches"]["potf2_f64"] > 0,
+            f"golden: the root's potf2 kernel was not launched "
+            f"({golden['launches']}, captured {golden['captured_launches']})")
+    add(golden["launches"])
 
     # ---- 11. the kernels line ----
     leaf = ldl_rows[0]
     ell = next(r for r in ell_rows if r["case"] == "fwd"
                and r["dtype"] == "float32" and r["c"] > 1)
     sw = sweep_rows[0]
+    pr = potf2_rows[1]          # the flagship's dual block [1, 128, 128]
     kernels = [
         dict(name="ldl_inverse_f32", route="cuda",
              source="pips_ipmpp_tpu_torch/csrc/ldl_inverse.cu",
@@ -1011,6 +1263,15 @@ def main():
              ms=sw["ms"], plain_ms=sw["plain_ms"],
              bound_ms=sw["bound_ms"], bound_by=sw["bound_by"],
              library_ms=sw["library_ms"]),
+        dict(name="potf2_f64", route="cuda",
+             source="pips_ipmpp_tpu_torch/csrc/potf2.cu",
+             replaces="none: the f64 root Cholesky, jnp.linalg.cholesky "
+                      "(LAPACK) at pips_ipmpp_tpu/linalg/arrow_backend.py:741",
+             launches=total["potf2_f64"],
+             max_abs_err=max(r["max_abs_err"] for r in potf2_rows),
+             ms=pr["loop_ms"], plain_ms=pr["plain_ms"],
+             bound_ms=pr["bound_ms"], bound_by=pr["bound_by"],
+             library_ms=pr["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
+from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, stack_lps
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
 from pips_ipmpp_tpu_torch.ipm.formulation import Iterate
@@ -31,6 +31,15 @@ def lp_from_numpy(fields: dict[str, np.ndarray], *, device,
         raise ValueError(f"missing ArrowheadLP fields: {sorted(missing)}")
     return ArrowheadLP(**{k: _tensor(fields[k], device, dtype)
                           for k in names})
+
+
+def lps_from_numpy(batch: list[dict[str, np.ndarray]], *, device,
+                   dtype) -> ArrowheadLP:
+    """One stacked ArrowheadLP (`core/lp.py::stack_lps`, a leading batch
+    axis) from a list of dicts, one per LP, as `lp_from_numpy` takes
+    them: the batch of `IPMSolver.solve_fused_batch_async`."""
+    return stack_lps([lp_from_numpy(f, device=device, dtype=dtype)
+                      for f in batch])
 
 
 def sparse_lp_from_numpy(fields: dict, *, device,

@@ -12,6 +12,10 @@ Per-block matrices are stored batched dense and padded to uniform shapes
 `[N, rows, cols]`; the padding keeps the padded LP exactly equivalent to the
 original one (see `_pad_block`).  Every field is a torch tensor; the
 containers are plain dataclasses with `.to(device)` and `.astype(dtype)`.
+
+`stack_lps` stacks B same-shape arrowhead LPs into one `ArrowheadLP`
+whose every field has a leading batch axis (`batch_shape == (B,)`), the
+input of the fused batch solve; a single LP has `batch_shape == ()`.
 """
 from __future__ import annotations
 
@@ -28,8 +32,12 @@ def _map_fields(obj, fn):
                         for f in dataclasses.fields(obj)})
 
 
-def _maxabs(t: torch.Tensor) -> torch.Tensor:
-    return t.abs().max() if t.numel() else t.new_zeros(())
+def _maxabs(t: torch.Tensor, nb: int = 0) -> torch.Tensor:
+    """max |t| over all of t, or per LP over all but the `nb` leading
+    axes (0 where that is empty)."""
+    if t[(0,) * nb].numel() == 0:
+        return t.new_zeros(t.shape[:nb])
+    return t.abs().reshape(t.shape[:nb] + (-1,)).amax(-1)
 
 
 @dataclass
@@ -109,8 +117,13 @@ class ArrowheadLP:
 
     # ------------------------------------------------------------------
     @property
+    def batch_shape(self) -> tuple:
+        """() for one LP, (B,) for a stack of B LPs (`stack_lps`)."""
+        return tuple(self.c0.shape[:-1])
+
+    @property
     def N(self) -> int:
-        return self.cN.shape[0]
+        return self.cN.shape[-2]
 
     @property
     def n0(self) -> int:
@@ -169,7 +182,8 @@ class ArrowheadLP:
         return self.m0I + self.N * self.mI + self.mIl
 
     def datanorm(self) -> torch.Tensor:
-        """inf-norm over all problem data (reference Problem::datanorm)."""
+        """inf-norm over all problem data (reference Problem::datanorm),
+        one per LP of a stack."""
         leaves = [self.c0, self.A0, self.b0, self.C0, self.cN, self.A, self.B,
                   self.bN, self.C, self.D, self.F0, self.F, self.bl, self.G0,
                   self.G,
@@ -178,7 +192,41 @@ class ArrowheadLP:
                   self.clowN * self.iclowN, self.cuppN * self.icuppN,
                   self.xlowN * self.ixlowN, self.xuppN * self.ixuppN,
                   self.clowl * self.iclowl, self.cuppl * self.icuppl]
-        return torch.stack([_maxabs(t) for t in leaves]).max()
+        nb = len(self.batch_shape)
+        return torch.stack([_maxabs(t, nb) for t in leaves], -1).amax(-1)
+
+
+def stack_lps(lps) -> ArrowheadLP:
+    """One `ArrowheadLP` of B same-shape LPs, every field stacked on a new
+    leading axis (the JAX package stacks its batch the same way,
+    `jax.tree.map(jnp.stack)`).  Refuses LPs that are not all single
+    `ArrowheadLP`s of one dtype and device, or whose fields differ in
+    shape, naming the field; the LPs share one sparsity pattern in the
+    dense layout by construction."""
+    lps = list(lps)
+    if not lps:
+        raise ValueError("stack_lps needs at least one LP")
+    for i, lp in enumerate(lps):
+        if not isinstance(lp, ArrowheadLP):
+            raise TypeError(f"stack_lps: LP {i} is a {type(lp).__name__}, "
+                            f"not an ArrowheadLP")
+        if lp.batch_shape != ():
+            raise ValueError(f"stack_lps: LP {i} is already a stack "
+                             f"(batch shape {lp.batch_shape})")
+    ref = lps[0]
+    for i, lp in enumerate(lps[1:], 1):
+        if (lp.dtype, lp.device) != (ref.dtype, ref.device):
+            raise ValueError(f"stack_lps: LP {i} is {lp.dtype} on "
+                             f"{lp.device}, LP 0 {ref.dtype} on {ref.device}")
+        for f in dataclasses.fields(ArrowheadLP):
+            a, b = getattr(ref, f.name), getattr(lp, f.name)
+            if a.shape != b.shape:
+                raise ValueError(f"stack_lps: field {f.name} of LP {i} has "
+                                 f"shape {tuple(b.shape)}, LP 0's "
+                                 f"{tuple(a.shape)}")
+    return ArrowheadLP(**{f.name: torch.stack([getattr(lp, f.name)
+                                               for lp in lps])
+                          for f in dataclasses.fields(ArrowheadLP)})
 
 
 # ======================================================================

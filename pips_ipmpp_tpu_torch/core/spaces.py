@@ -14,6 +14,14 @@ Reductions keep the reference's summation split: the `first`/`link`
 parts are reduced together and the batched `blocks` parts separately,
 then the two are combined — the same order the JAX package uses, so f64
 results agree to the last few bits.
+
+A stack of B same-shape LPs (`core/lp.py::stack_lps`) puts a leading
+batch axis in front of every part (first [B, n0], blocks [B, N, n]).  The
+reductions see it in the space vectors' `first` part and reduce per LP,
+over every axis but the batch axes, into a tensor of the batch shape; a
+single LP's tree takes the branch it always took.  `bcast` lines a per-LP
+scalar up against a batched tensor and `select` is `torch.where` with a
+per-LP predicate over a tree.
 """
 from __future__ import annotations
 
@@ -75,6 +83,84 @@ def _space_leaves(tree):
     return leaves(tree, is_leaf=_is_space)
 
 
+def batch_ndim(tree) -> int:
+    """The number of leading batch axes of a tree of space vectors: 0 for
+    a single LP, 1 for a stack of LPs."""
+    for x in _space_leaves(tree):
+        if _is_space(x):
+            return x.first.ndim - 1
+    raise ValueError("the tree holds no space vector")
+
+
+def bcast(s, like):
+    """A per-LP scalar `s` (a tensor of the batch shape) with singleton
+    axes appended, so that it broadcasts against `like` [*batch, ...]; a
+    0-dim tensor or a Python number is returned as it is."""
+    if not isinstance(s, torch.Tensor) or s.ndim == 0:
+        return s
+    return s.reshape(s.shape + (1,) * (like.ndim - s.ndim))
+
+
+def select(pred, a, b):
+    """`torch.where(pred, a, b)` leafwise over matching trees, with `pred`
+    of the batch shape (or 0-dim).  Matching tensor leaves must have one
+    shape (as a captured graph's carry buffers do, so that the eager run
+    refuses what a capture would); non-tensor leaves must agree and are
+    kept."""
+    def sel(x, y):
+        if not isinstance(x, torch.Tensor):
+            if isinstance(y, torch.Tensor) or x != y:
+                raise ValueError(f"a non-tensor leaf differs: {x!r}, {y!r}")
+            return x
+        if x.shape != y.shape:
+            raise ValueError(f"leaves of shapes {tuple(x.shape)} and "
+                             f"{tuple(y.shape)}")
+        return torch.where(bcast(pred, x), x, y)
+    return tmap(sel, a, b)
+
+
+def reduce_all(fn, t: torch.Tensor, nb: int) -> torch.Tensor:
+    """`fn(t)` over all of `t` (nb = 0), or per LP over every axis but the
+    `nb` leading ones, with `fn(x, dim)` (`torch.amax`, `torch.all`, ...)."""
+    if nb == 0:
+        return fn(t)
+    return fn(t.reshape(t.shape[:nb] + (-1,)), -1)
+
+
+def _parts(l):
+    """(replicated parts, the blocks part) of a space vector."""
+    if isinstance(l, RVec):
+        return (l.first, l.link), l.blocks
+    return (l.first,), l.blocks
+
+
+def _batched(tree, nb, empty, red, comb):
+    """Per-LP reduction over a batched tree: `red(x)` reduces every axis
+    of x [*batch, ...] but the batch axes (an empty part gives `empty`),
+    `comb` combines two partial results; the replicated parts and the
+    blocks are reduced apart and combined last, as in the single-LP
+    branch."""
+    first = next(x for x in _space_leaves(tree) if _is_space(x)).first
+    init = torch.full(first.shape[:nb], empty, dtype=first.dtype,
+                      device=first.device)
+
+    def r(x):
+        if x[(0,) * nb].numel() == 0:
+            return init
+        return red(x.reshape(x.shape[:nb] + (-1,)))
+
+    rep, shard = init, init
+    for l in _space_leaves(tree):
+        if _is_space(l):
+            reps, blocks = _parts(l)
+            for x in reps:
+                rep = comb(rep, r(x))
+            shard = comb(shard, r(blocks))
+        else:
+            rep = comb(rep, r(l))
+    return comb(rep, shard)
+
+
 def _vdot(a, b):
     if a.numel() == 0:
         # cuBLAS writes an empty dot's 0 from host memory, a copy that a
@@ -89,7 +175,12 @@ def _full_like_first(tree, value):
 
 
 def dot(a, b) -> torch.Tensor:
-    """Sum of elementwise products over a tree of space vectors."""
+    """Sum of elementwise products over a tree of space vectors (per LP
+    for a batched tree)."""
+    nb = batch_ndim(a)
+    if nb:
+        prod = tmap(torch.mul, a, b)
+        return _batched(prod, nb, 0.0, lambda x: x.sum(-1), torch.add)
     rep = _full_like_first(a, 0.0)
     shard = _full_like_first(a, 0.0)
     for la, lb in zip(_space_leaves(a), _space_leaves(b)):
@@ -104,6 +195,9 @@ def dot(a, b) -> torch.Tensor:
 
 
 def total_sum(a) -> torch.Tensor:
+    nb = batch_ndim(a)
+    if nb:
+        return _batched(a, nb, 0.0, lambda x: x.sum(-1), torch.add)
     rep = _full_like_first(a, 0.0)
     shard = _full_like_first(a, 0.0)
     for l in _space_leaves(a):
@@ -118,6 +212,10 @@ def total_sum(a) -> torch.Tensor:
 
 
 def norm_inf(a) -> torch.Tensor:
+    nb = batch_ndim(a)
+    if nb:
+        return _batched(a, nb, 0.0, lambda x: x.abs().amax(-1),
+                        torch.maximum)
     rep = _full_like_first(a, 0.0)
     shard = _full_like_first(a, 0.0)
 
@@ -136,7 +234,12 @@ def norm_inf(a) -> torch.Tensor:
 
 
 def min_reduce(a) -> torch.Tensor:
-    """Global minimum over all entries (used by step bound computations)."""
+    """Global minimum over all entries (used by step bound computations);
+    per LP for a batched tree."""
+    nb = batch_ndim(a)
+    if nb:
+        return _batched(a, nb, float("inf"), lambda x: x.amin(-1),
+                        torch.minimum)
     rep = _full_like_first(a, float("inf"))
     shard = _full_like_first(a, float("inf"))
 

@@ -205,6 +205,12 @@ class SparseArrowheadLP:
 
     # ------------------------------------------------------------------
     @property
+    def batch_shape(self) -> tuple:
+        """Always (): a stack of sparse LPs is not ported (ROADMAP.md §1,
+        the sparse batch)."""
+        return ()
+
+    @property
     def N(self) -> int:
         return self.cN.shape[0]
 

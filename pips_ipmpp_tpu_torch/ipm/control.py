@@ -25,6 +25,16 @@ writes the true branch's values into `operands` in place and returns
 them; with two branches it returns new buffers that both branches write.
 Either way the branches return the structure and shapes of `operands`.
 
+A predicate with one element per LP of a batch (shape (B,), the fused
+batch solve) takes `jax.vmap`'s semantics: the loop runs while any LP's
+predicate holds, the body runs for all LPs, and each LP's carry takes the
+body's values only where its own predicate held (`spaces.select`); an IF
+body runs if any LP's predicate holds and merges the same way.  Eagerly
+that is one `any()` read-back per test; captured, the same conditional
+node on the `any()`, with the merge inside the body.  A predicate of one
+element keeps the single-LP path, and `max_trips` counts the loop's trips
+in either case.
+
 A capture needs every allocation of its bodies in the graph's private
 memory pool: `capture` routes the current thread's allocations there for
 the length of a capture, and `prepare` loads the library, the condition
@@ -37,7 +47,7 @@ from contextlib import contextmanager
 
 import torch
 
-from pips_ipmpp_tpu_torch.core.spaces import leaves, tmap
+from pips_ipmpp_tpu_torch.core.spaces import leaves, select, tmap
 
 IF, WHILE = 0, 1
 MAX_DEPTH = 8            # nested bodies one capture may open
@@ -61,30 +71,68 @@ def _first_tensor(tree):
 
 def dev_while(cond_fn, body_fn, carry, max_trips: int):
     """`while cond_fn(carry): carry = body_fn(carry)`, at most `max_trips`
-    times.  `cond_fn` returns a bool tensor of one element."""
+    times.  `cond_fn` returns a bool tensor of one element, or one per LP
+    of a batch (the module's docstring)."""
     if not capturing(_first_tensor(carry)):
         trips = 0
-        while trips < max_trips and bool(cond_fn(carry)):
-            carry = body_fn(carry)
+        while trips < max_trips:
+            p = cond_fn(carry)
+            if p.numel() == 1:
+                if not bool(p):
+                    break
+                carry = body_fn(carry)
+            else:
+                if not bool(p.any()):
+                    break
+                carry = select(p, body_fn(carry), carry)
             trips += 1
         return carry
     buf = _own(carry)
     dev = _first_tensor(buf).device
     trips = torch.zeros((), dtype=torch.int32, device=dev)
-    with _body(_pred(cond_fn(buf), trips, max_trips), WHILE) as finish:
-        _assign(buf, body_fn(buf))
+    p = cond_fn(buf)
+    if p.numel() == 1:
+        with _body(_pred(p, trips, max_trips), WHILE) as finish:
+            _assign(buf, body_fn(buf))
+            trips.add_(1)
+            finish(_pred(cond_fn(buf), trips, max_trips))
+        return buf
+    mask = p.to(torch.bool).clone()
+    with _body(_pred(mask.any(), trips, max_trips), WHILE) as finish:
+        _assign(buf, select(mask, body_fn(buf), buf))
         trips.add_(1)
-        finish(_pred(cond_fn(buf), trips, max_trips))
+        mask.copy_(cond_fn(buf))
+        finish(_pred(mask.any(), trips, max_trips))
     return buf
 
 
 def dev_cond(pred, true_fn, false_fn, operands: tuple):
     """`true_fn(*operands) if pred else false_fn(*operands)`; a None
-    `false_fn` is the identity."""
+    `false_fn` is the identity.  `pred` has one element, or one per LP of
+    a batch (the module's docstring)."""
+    batched = pred.numel() != 1
     if not capturing(pred):
-        if bool(pred):
-            return true_fn(*operands)
-        return operands if false_fn is None else false_fn(*operands)
+        if not batched:
+            if bool(pred):
+                return true_fn(*operands)
+            return operands if false_fn is None else false_fn(*operands)
+        out = operands if false_fn is None or bool(pred.all()) \
+            else false_fn(*operands)
+        if bool(pred.any()):
+            out = select(pred, true_fn(*operands), out)
+        return out
+    if batched:
+        mask = pred.to(torch.bool)
+        if false_fn is None:
+            with _body(mask.any(), IF):
+                _assign(operands, select(mask, true_fn(*operands), operands))
+            return operands
+        out = _own(operands, copy=False)
+        with _body(mask.any(), IF):
+            _assign(out, true_fn(*operands))
+        with _body((~mask).any(), IF):
+            _assign(out, select(mask, out, false_fn(*operands)))
+        return out
     pred = pred.reshape(()).to(torch.bool)
     if false_fn is None:
         with _body(pred, IF):

@@ -10,6 +10,13 @@ its predicate back once per turn; captured into a CUDA graph
 inside it a conditional node too, and the host reads nothing until the
 solve ends.  Per-iteration statistics are written into preallocated
 tensors.
+
+Over a backend of a stack of LPs (`be.batch_shape == (B,)`, the fused
+batch solve) the same code solves every LP at once, as `jax.vmap` of the
+JAX package's loop does: every scalar of the carry (`k`, `turns`,
+`status`, `attempt`, the regularization state, ...) holds one value per
+LP, the history is [B, max_iterations], and `control`'s batched
+semantics keep an LP's carry where its own loop has ended.
 """
 from __future__ import annotations
 
@@ -19,7 +26,7 @@ from typing import Any
 import torch
 
 from pips_ipmpp_tpu_torch.core.options import Options
-from pips_ipmpp_tpu_torch.core.spaces import tmap
+from pips_ipmpp_tpu_torch.core.spaces import bcast, select, tmap
 from pips_ipmpp_tpu_torch.core.status import TerminationStatus
 from pips_ipmpp_tpu_torch.ipm import formulation as F
 from pips_ipmpp_tpu_torch.ipm.control import dev_cond, dev_while
@@ -80,19 +87,21 @@ def solve_on_device(be, opts: Options):
     max_it = opts.max_iterations
     it0, datanorm = initial_point(be, opts)
     dt, dev = datanorm.dtype, datanorm.device
+    batch = tuple(datanorm.shape)       # () for one LP, (B,) for a stack
     res_scale = res_tol * torch.clamp(datanorm, min=1.0)
     rows = torch.arange(max_it, device=dev)
 
     def nan_row():
-        return torch.full((max_it,), float("nan"), dtype=dt, device=dev)
+        return torch.full(batch + (max_it,), float("nan"), dtype=dt,
+                          device=dev)
 
     hist0 = FusedHistory(nan_row(), nan_row(), nan_row(), nan_row(),
                          nan_row())
     strat = make_regularization(opts)
-    rstate0 = strat.init_state(dt, dev)
+    rstate0 = strat.init_state(dt, dev, batch)
 
     def int0(v=0):
-        return torch.full((), v, dtype=torch.int32, device=dev)
+        return torch.full(batch, v, dtype=torch.int32, device=dev)
 
     def eval_all(it):
         res = F.compute_residuals(be, it)
@@ -147,17 +156,16 @@ def solve_on_device(be, opts: Options):
             # retry after a failed factorization does not (reference
             # notify_new_step vs get_regularization_parameters)
             first = attempt == 0
-            rs = tmap(lambda a, b: torch.where(first, a, b),
-                      strat.new_step(rstate), rstate)
+            rs = select(first, strat.new_step(rstate), rstate)
             dp, dd = strat.deltas(rs)
             new_it, stats = ipm_step(be, it, dp, dd, opts, iteration=k,
                                      res=res_it)
             ok = stats.factor_ok
             # on factorization failure: keep the iterate, escalate via the
             # strategy (retried next loop turn)
-            kept = tmap(lambda a, b: torch.where(ok, a, b), new_it, it)
+            kept = select(ok, new_it, it)
             fs = strat.on_failure(rs, mu_v, attempt)
-            rs2 = tmap(lambda a, b: torch.where(ok, a, b), rs, fs)
+            rs2 = select(ok, rs, fs)
             attempt2 = torch.where(ok, 0, attempt + 1).to(torch.int32)
             too_big = ~ok & (strat.give_up(rs2)
                              | (attempt2 > opts.max_regularization_retries))
@@ -170,12 +178,12 @@ def solve_on_device(be, opts: Options):
         idle = StepStats(mu=mu_v.clone(), sigma=zero,
                          alpha_primal=zero.clone(),
                          alpha_dual=zero.clone(), n_gondzio=int0(),
-                         factor_ok=torch.ones((), dtype=torch.bool,
+                         factor_ok=torch.ones(batch, dtype=torch.bool,
                                               device=dev))
         it2, rstate2, attempt2, stats, reg_fail = dev_cond(
             new_status == RUNNING, do_step, None,
             (it, rstate, attempt.clone(), idle,
-             torch.zeros((), dtype=torch.bool, device=dev)))
+             torch.zeros(batch, dtype=torch.bool, device=dev)))
         new_status = torch.where(reg_fail, FACTOR_FAIL,
                                  new_status).to(torch.int32)
 
@@ -183,37 +191,38 @@ def solve_on_device(be, opts: Options):
         # turns and the terminal evaluation turn neither consume the
         # iteration budget nor write a history row
         stepped = (new_status == RUNNING) & stats.factor_ok
-        at = (rows == k) & stepped
+        at = (rows == bcast(k, hist.mu)) & bcast(stepped, hist.mu)
+
+        def row(v, h):
+            return torch.where(at, bcast(v, h), h)
+
         hist = FusedHistory(
-            mu=torch.where(at, mu_v, hist.mu),
-            residual=torch.where(at, res_v, hist.residual),
-            objective=torch.where(at, obj_v, hist.objective),
-            alpha_primal=torch.where(at, stats.alpha_primal,
-                                     hist.alpha_primal),
-            alpha_dual=torch.where(at, stats.alpha_dual, hist.alpha_dual))
+            mu=row(mu_v, hist.mu), residual=row(res_v, hist.residual),
+            objective=row(obj_v, hist.objective),
+            alpha_primal=row(stats.alpha_primal, hist.alpha_primal),
+            alpha_dual=row(stats.alpha_dual, hist.alpha_dual))
         if upd_every == 0:
             res_c2, since3 = res_c, since2
         else:
             fp = 1.0 - stats.alpha_primal
             fd = 1.0 - stats.alpha_dual
             scaled = F.Residuals(
-                rL=tmap(lambda a: a * fd, res_it.rL),
-                rA=tmap(lambda a: a * fp, res_it.rA),
-                rC=tmap(lambda a: a * fp, res_it.rC),
-                rz=tmap(lambda a: a * fd, res_it.rz),
-                rv=tmap(lambda a: a * fp, res_it.rv),
-                rw=tmap(lambda a: a * fp, res_it.rw),
-                rt=tmap(lambda a: a * fp, res_it.rt),
-                ru=tmap(lambda a: a * fp, res_it.ru))
-            res_c2 = tmap(lambda a, b: torch.where(stepped, a, b), scaled,
-                          res_it)
+                rL=tmap(lambda a: a * bcast(fd, a), res_it.rL),
+                rA=tmap(lambda a: a * bcast(fp, a), res_it.rA),
+                rC=tmap(lambda a: a * bcast(fp, a), res_it.rC),
+                rz=tmap(lambda a: a * bcast(fd, a), res_it.rz),
+                rv=tmap(lambda a: a * bcast(fp, a), res_it.rv),
+                rw=tmap(lambda a: a * bcast(fp, a), res_it.rw),
+                rt=tmap(lambda a: a * bcast(fp, a), res_it.rt),
+                ru=tmap(lambda a: a * bcast(fp, a), res_it.ru))
+            res_c2 = select(stepped, scaled, res_it)
             since3 = torch.where(stepped, since2 + 1, since2)
         return (it2, k + stepped.to(k.dtype), turns + 1, rstate2, attempt2,
                 new_status, best_mu, stall, hist, res_c2, since3)
 
     res0 = F.compute_residuals(be, it0)
     init = (it0, int0(), int0(), rstate0, int0(), int0(RUNNING),
-            torch.full((), float("inf"), dtype=dt, device=dev), int0(),
+            torch.full(batch, float("inf"), dtype=dt, device=dev), int0(),
             hist0, res0, int0())
     # each stepped turn advances k; between two steps at most
     # max_regularization_retries + 1 retry turns; one terminal turn
@@ -223,7 +232,7 @@ def solve_on_device(be, opts: Options):
     dp, dd = strat.deltas(rstate)
     _, (mu_f, res_f, obj_f) = eval_all(it)
     # `turns` = loop body executions: iterations + factorization retries
-    # + the terminal evaluation turn
+    # + the terminal evaluation turn (per LP: the trips of its own loop)
     info = dict(status=status, iterations=k, turns=turns, mu=mu_f,
                 residual_norm=res_f, objective=obj_f, history=hist,
                 delta_p=dp, delta_d=dd)

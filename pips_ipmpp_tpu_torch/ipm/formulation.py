@@ -5,6 +5,11 @@ the derivation).  Backend-generic: every quantity is a tree of XVec/RVec
 space vectors; elementwise work is `tmap`, reductions go through
 core.spaces, and matrix-vector products go through a backend object.
 
+Over a stack of LPs (`core/lp.py::stack_lps`) every vector carries the
+leading batch axis, the reductions (mu, norms, step bounds, the blocking
+pair) give one value per LP, and every per-LP scalar meets a vector
+through `spaces.bcast`.
+
 Augmented system in (dx, yhat, zhat) with yhat=-dy, zhat=-dz:
 
     [ Dx+dp    A'      C'        ] [dx  ]   [ -rhat_x ]
@@ -24,7 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from pips_ipmpp_tpu_torch.core import spaces
-from pips_ipmpp_tpu_torch.core.spaces import tmap
+from pips_ipmpp_tpu_torch.core.spaces import bcast, tmap
 
 _INF = float("inf")
 
@@ -134,8 +139,9 @@ def mu_after_step(be, it: Iterate, d: Iterate, alpha_p, alpha_d):
     """mu at (it + alpha_p*primal, alpha_d*dual) without forming the trial
     point (reference Variables::mustep_pd)."""
     def pair(val, dval, dual, ddual):
-        return spaces.dot(tmap(lambda a, b: a + alpha_p * b, val, dval),
-                          tmap(lambda a, b: a + alpha_d * b, dual, ddual))
+        return spaces.dot(
+            tmap(lambda a, b: a + bcast(alpha_p, a) * b, val, dval),
+            tmap(lambda a, b: a + bcast(alpha_d, a) * b, dual, ddual))
 
     gap = (pair(it.v, d.v, it.gamma, d.gamma) + pair(it.w, d.w, it.phi, d.phi)
            + pair(it.t, d.t, it.lam, d.lam) + pair(it.u, d.u, it.pi, d.pi))
@@ -172,8 +178,8 @@ def comp_rhs_corrector(be, it: Iterate, d_aff: Iterate, sigma_mu) -> CompRhs:
     """Mehrotra corrector rhs: v*g + dv_aff*dg_aff - sigma*mu."""
     def mk(mask, val, dual, dval, ddual):
         return tmap(lambda m, a, b, da, db:
-                    m * (a * b + da * db - sigma_mu), mask, val, dual, dval,
-                    ddual)
+                    m * (a * b + da * db - bcast(sigma_mu, a)), mask, val,
+                    dual, dval, ddual)
     bd = be.bounds
     return CompRhs(
         rG=mk(bd.ixlow, it.v, it.gamma, d_aff.v, d_aff.gamma),
@@ -196,10 +202,11 @@ def comp_rhs_gondzio(be, it: Iterate, d: Iterate, alpha_p, alpha_d,
 
     def mk(mask, val, dual, dval, ddual):
         def f(m, a, b, da, db):
-            p = (a + alpha_p * da) * (b + alpha_d * db)
-            viol = p - torch.clamp(p, min=lo, max=hi)
+            p = (a + bcast(alpha_p, a) * da) * (b + bcast(alpha_d, b) * db)
+            lo_, hi_ = bcast(lo, p), bcast(hi, p)
+            viol = p - torch.clamp(p, min=lo_, max=hi_)
             # clamp excessive positive violation (reference caps at hi)
-            return m * torch.minimum(viol, hi)
+            return m * torch.minimum(viol, hi_)
         return tmap(f, mask, val, dual, dval, ddual)
 
     bd = be.bounds
@@ -305,7 +312,7 @@ def find_blocking(be, it: Iterate, d: Iterate, primal: bool):
 
     Per-leaf masked argmin + take, then a leaf-chained select; ties go
     to the first index (torch.argmin and jnp.argmin agree on that) and to
-    the earlier leaf."""
+    the earlier leaf.  Over a stack of LPs each LP has its own pair."""
     bd = be.bounds
     pairs = [
         (bd.ixlow, it.v, d.v, it.gamma, d.gamma),
@@ -318,17 +325,21 @@ def find_blocking(be, it: Iterate, d: Iterate, primal: bool):
                  for (m, val, dval, dual, ddual) in pairs]
 
     v0 = spaces.leaves(it.v)[0]
-    zero = torch.zeros((), dtype=v0.dtype, device=v0.device)
+    nb = spaces.batch_ndim(it.v)
+    batch = tuple(v0.shape[:nb])
+    zero = torch.zeros(batch, dtype=v0.dtype, device=v0.device)
     best = (zero + _INF, zero, zero, zero, zero)
 
     for group in pairs:
         for (ml, al, dal, pl, dpl) in zip(*(spaces.leaves(t) for t in group)):
-            if ml.numel() == 0:
+            if ml[(0,) * nb].numel() == 0:
                 continue
-            r = _ratio(ml, al, dal).reshape(-1)
-            i = torch.argmin(r)
-            # torch.take: indexing with a 0-dim tensor would read i back
-            cand = tuple(torch.take(t, i) for t in (r, al, dal, pl, dpl))
+            # gather, not indexing: indexing with a tensor would read the
+            # index back
+            r = _ratio(ml, al, dal).reshape(batch + (-1,))
+            i = torch.argmin(r, dim=-1, keepdim=True)
+            cand = tuple(t.reshape(batch + (-1,)).gather(-1, i)[..., 0]
+                         for t in (r, al, dal, pl, dpl))
             take = cand[0] < best[0]
             best = tuple(torch.where(take, c, b) for c, b in zip(cand, best))
 
@@ -347,9 +358,11 @@ def step_bound_single(be, it: Iterate, d: Iterate):
 
 def _combine(a: Iterate, b: Iterate, w_p, w_d) -> Iterate:
     """a + w_p * b on the primal components, a + w_d * b on the dual ones."""
-    kw = {k: tmap(lambda x, y: x + w_p * y, getattr(a, k), getattr(b, k))
+    kw = {k: tmap(lambda x, y: x + bcast(w_p, x) * y, getattr(a, k),
+                  getattr(b, k))
           for k in _PRIMAL}
-    kw.update({k: tmap(lambda x, y: x + w_d * y, getattr(a, k), getattr(b, k))
+    kw.update({k: tmap(lambda x, y: x + bcast(w_d, x) * y, getattr(a, k),
+                       getattr(b, k))
                for k in _DUAL})
     return Iterate(**kw)
 
@@ -380,10 +393,11 @@ def initial_iterate(be, shift) -> Iterate:
     def center(mlo, lo, mup, up):
         def f(ml, l, mu_, u):
             both = (ml > 0) & (mu_ > 0)
+            sh = bcast(shift, l)
             return torch.where(
                 both, 0.5 * (l + u),
-                torch.where(ml > 0, l + shift,
-                            torch.where(mu_ > 0, u - shift, 0.0)))
+                torch.where(ml > 0, l + sh,
+                            torch.where(mu_ > 0, u - sh, 0.0)))
         return tmap(f, mlo, lo, mup, up)
 
     x = center(bd.ixlow, bd.xlow, bd.ixupp, bd.xupp)
@@ -392,8 +406,8 @@ def initial_iterate(be, shift) -> Iterate:
     def gap(mask, sign_lo, val, bound):
         # max(shift, distance to bound) where masked, else 1
         def f(m, a, b):
-            return torch.where(m > 0, torch.maximum(shift, sign_lo * (a - b)),
-                               1.0)
+            return torch.where(m > 0, torch.maximum(bcast(shift, a),
+                                                    sign_lo * (a - b)), 1.0)
         return tmap(f, mask, val, bound)
 
     v = gap(bd.ixlow, +1.0, x, bd.xlow)
@@ -402,7 +416,7 @@ def initial_iterate(be, shift) -> Iterate:
     u = gap(bd.icupp, -1.0, s, bd.cupp)
 
     def dual_init(mask):
-        return tmap(lambda m: torch.where(m > 0, shift, 0.0), mask)
+        return tmap(lambda m: torch.where(m > 0, bcast(shift, m), 0.0), mask)
 
     return Iterate(
         x=x, s=s,
@@ -433,7 +447,7 @@ def shift_bound_variables(be, it: Iterate, amount) -> Iterate:
     bd = be.bounds
 
     def sh(mask, val):
-        return tmap(lambda m, a: a + m * amount, mask, val)
+        return tmap(lambda m, a: a + m * bcast(amount, m), mask, val)
 
     return Iterate(
         x=it.x, s=it.s, y=it.y, z=it.z,

@@ -7,7 +7,9 @@ step), after the reference's InteriorPointMethod
 `lax.while_loop`/`lax.cond` are `control.dev_while`/`dev_cond`: eager in
 the host loop, where each test reads its flag back, and conditional graph
 nodes when the fused loop is captured.  Every quantity a decision reads,
-the Gondzio loop's counters and flags included, is a device tensor.
+the Gondzio loop's counters and flags included, is a device tensor: one
+per LP over a stack of LPs, whose loops and branches then take
+`control`'s batched semantics.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from typing import Any
 import torch
 
 from pips_ipmpp_tpu_torch.core.options import Options, StepMode
-from pips_ipmpp_tpu_torch.core.spaces import leaves, tmap
+from pips_ipmpp_tpu_torch.core.spaces import bcast, leaves, tmap
 from pips_ipmpp_tpu_torch.ipm import formulation as F
 from pips_ipmpp_tpu_torch.ipm.control import dev_cond, dev_while
 
@@ -52,9 +54,12 @@ def _weights(n: int, like: torch.Tensor) -> torch.Tensor:
 
 def _argmax_take(scores, *vals):
     """vals[argmax(scores)] for each of vals, with no read-back (indexing
-    with a 0-dim tensor would read the index back)."""
-    i = torch.argmax(scores)
-    return [torch.take(v, i) for v in vals]
+    with a 0-dim tensor would read the index back).  Over a stack of LPs
+    `scores` is [n, B], each LP takes its own argmax, and a val is [n, B]
+    or, shared by the LPs, [n]."""
+    i = torch.argmax(scores, dim=0)
+    return [torch.take(v, i) if v.ndim == 1
+            else v.gather(0, i[None])[0] for v in vals]
 
 
 def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
@@ -95,7 +100,7 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
         a_p, a_d = _alphas(be, it, d, opts)
 
     # ---- Gondzio multiple centrality correctors (reference :236-358) ----
-    n_gondzio = torch.zeros((), dtype=torch.int32, device=mu.device)
+    n_gondzio = torch.zeros(mu.shape, dtype=torch.int32, device=mu.device)
     if opts.max_gondzio_correctors > 0:
         zero_res = tmap(torch.zeros_like, res)
         it_idx = iteration if iteration is not None else -1
@@ -156,7 +161,7 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
                     n_small + (accepted & small_corr).to(k.dtype),
                     small_corr | switch_small, accepted | switch_small)
 
-        false = torch.zeros((), dtype=torch.bool, device=mu.device)
+        false = torch.zeros(mu.shape, dtype=torch.bool, device=mu.device)
         d, a_p, a_d, n_gondzio, _, _, _ = dev_while(
             cond, body, (d, a_p, a_d, n_gondzio, torch.zeros_like(n_gondzio),
                          false, ~false),
@@ -262,6 +267,6 @@ def _weighted_pc_search(be, it, d_aff, d_corr, opts: Options):
     aps = torch.stack([t[0] for t in trials])
     ads = torch.stack([t[1] for t in trials])
     w_best, a_p, a_d = _argmax_take(aps + ads, ws, aps, ads)
-    d = tmap(lambda a, dd: a + w_best * dd, d_aff, d_delta)
+    d = tmap(lambda a, dd: a + bcast(w_best, a) * dd, d_aff, d_delta)
     return d, a_p, a_d
 

@@ -6,14 +6,16 @@ is `factorization_ok` (non-finite factors / wrong pivot signs in the
 quasidefinite LDL), which plays the role of the reference's inertia test;
 the escalation schedules are kept verbatim.
 
-The state is a `(delta_p, delta_d, aux)` triple of scalar tensors on the
-device and every transition is a tensor operation, so one strategy object
+The state is a `(delta_p, delta_d, aux)` triple of tensors on the
+device, each of the batch shape (0-dim for one LP, (B,) for a stack of
+LPs, one state per LP), and every transition is an elementwise tensor
+operation, so one strategy object
 drives both the host loop (ipm/solver.py), which reads the state back
 where it decides, and the fused loop (ipm/device_loop.py), which never
 does.  `attempt` and `mu` may be Python numbers or device tensors.
 
 API:
-  init_state(dtype, device)     -> state
+  init_state(dtype, device, batch_shape=()) -> state
   new_step(state)               -> state   # at the start of a fresh IPM
                                            # iteration (NOT on retries)
   on_failure(state, mu, attempt)-> state   # after a failed factorization
@@ -25,8 +27,8 @@ from __future__ import annotations
 import torch
 
 
-def _zero(dtype, device):
-    return torch.zeros((), dtype=dtype, device=device)
+def _zero(dtype, device, batch_shape=()):
+    return torch.zeros(tuple(batch_shape), dtype=dtype, device=device)
 
 
 class GrowthLadder:
@@ -45,8 +47,8 @@ class GrowthLadder:
         # gentle ladder.
         self.f32_jump_floor = f32_jump_floor
 
-    def init_state(self, dtype, device="cpu"):
-        z = _zero(dtype, device)
+    def init_state(self, dtype, device="cpu", batch_shape=()):
+        z = _zero(dtype, device, batch_shape)
         floor = self.f32_jump_floor if dtype == torch.float32 else 0.0
         return (z + self.base_p, z + self.base_d, z + floor)
 
@@ -76,8 +78,8 @@ class FriedlanderOrban:
         self.increase, self.decrease = increase, decrease
         self.max_delta = max_delta
 
-    def init_state(self, dtype, device="cpu"):
-        z = _zero(dtype, device)
+    def init_state(self, dtype, device="cpu", batch_shape=()):
+        z = _zero(dtype, device, batch_shape)
         # pre-divided by the decrease factor so the first new_step lands
         # exactly on `initial` (FriedlanderOrbanRegularization.cpp:21)
         v = self.initial / self.decrease
@@ -114,8 +116,8 @@ class Ipopt:
     minimum = 1e-20
     maximum = 1e40
 
-    def init_state(self, dtype, device="cpu"):
-        z = _zero(dtype, device)
+    def init_state(self, dtype, device="cpu", batch_shape=()):
+        z = _zero(dtype, device, batch_shape)
         return (z, z, z)   # aux = primal_regularization_last
 
     def new_step(self, state):

@@ -15,6 +15,8 @@ factorize_with_correct_inertia loop (LinearSystem.C:296-325).
 `IPMSolver.solve_fused` runs the whole solve on the device instead
 (`ipm/device_loop.py`): on CUDA as one captured CUDA graph per backend
 shape, replayed for every later LP of that shape; on the CPU eagerly.
+`IPMSolver.solve_fused_batch_async` runs B same-shape LPs as one such
+solve over a leading batch axis (one graph per backend shape and B).
 """
 from __future__ import annotations
 
@@ -24,7 +26,9 @@ from typing import Callable, Optional
 
 import torch
 
+from pips_ipmpp_tpu_torch.core.lp import stack_lps
 from pips_ipmpp_tpu_torch.core.options import Options
+from pips_ipmpp_tpu_torch.core.sparse import SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.status import TerminationStatus
 from pips_ipmpp_tpu_torch.core.spaces import tmap
 from pips_ipmpp_tpu_torch.ipm import control
@@ -207,7 +211,34 @@ class IPMSolver:
         solve never runs the eager loop on the card instead.  On the CPU
         the same loop runs eagerly."""
         pin_float32_precision()
-        lp = lp.to(self.device).astype(WORKING_DTYPE)
+        return self._run_fused(lp.to(self.device).astype(WORKING_DTYPE))
+
+    def solve_fused_batch_async(self, lps):
+        """B independent LPs of the same shape as ONE fused solve, the JAX
+        package's `jax.vmap` of its device loop: the LPs are stacked on a
+        leading batch axis (`core/lp.py::stack_lps`) and the loop runs
+        until the last of them ends, each LP's carry kept from its own
+        end on (`ipm/control.py`), so each LP takes the status, the
+        iteration count and the objective of its own `solve_fused`.  At
+        small per-iteration shapes every leaf and root factorization of
+        the B LPs is one kernel call and every matvec a batch-B product.
+        Returns the raw (iterate, info) of `solve_fused_async`, every
+        tensor with a leading axis B (index b for LP b), without a
+        synchronization.  On CUDA one graph is captured per backend shape
+        and B, as in `solve_fused_async`; on the CPU the loop runs
+        eagerly.  Sparse LPs raise: their batch is not ported
+        (ROADMAP.md §1, item 14)."""
+        lps = list(lps)
+        if any(isinstance(lp, SparseArrowheadLP) for lp in lps):
+            raise NotImplementedError(
+                "a batch of sparse LPs is not ported yet (ROADMAP.md §1, "
+                "item 14: the sparse batch)")
+        pin_float32_precision()
+        return self._run_fused(stack_lps(
+            [lp.to(self.device).astype(WORKING_DTYPE) for lp in lps]))
+
+    def _run_fused(self, lp):
+        """The fused solve of a backend over `lp` (one LP or a stack)."""
         be = self.be_ctor(lp)
         if self.device.type != "cuda":
             it, info = solve_on_device(be, self.opts)

@@ -26,6 +26,13 @@ dual Schur complement).
 Solves run Lsolve -> Dsolve -> Ltsolve with adaptive iterative refinement
 on the augmented residual in the working dtype.
 
+Over a stack of B LPs (`core/lp.py::stack_lps`; `batch_shape == (B,)`)
+every tensor carries the leading batch axis, the shifts and health flags
+are one per LP, all B·N leaves go to the leaf kernel in one call (the
+batch folded into its block axis), the roots in one [B, ns, ns] call, and
+the root escalation and the refinement loop per LP (`control`'s batched
+semantics).  A single LP keeps its shapes and arithmetic.
+
 Factorization and solves are capture-clean: no read-back, no tensor made
 from host data.  The root shift escalation and the refinement are
 `control.dev_while` loops, conditional nodes when the fused loop is
@@ -39,12 +46,14 @@ from typing import Optional
 
 import torch
 
-from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
-from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec, _vdot
+from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, _maxabs
+from pips_ipmpp_tpu_torch.core.spaces import (RVec, XVec, _vdot, bcast,
+                                              reduce_all, select)
 from pips_ipmpp_tpu_torch.ipm.control import dev_while
 from pips_ipmpp_tpu_torch.ipm.formulation import Bounds, ReducedRhs
 from pips_ipmpp_tpu_torch.linalg.ldl import (inverse_from_factors,
                                              ldl_inverse_factors)
+from pips_ipmpp_tpu_torch.linalg.potf2 import cholesky_potf2
 from pips_ipmpp_tpu_torch.linalg.sweep import sweep_inverse
 
 
@@ -70,9 +79,18 @@ class ArrowFactors:
     delta_p: torch.Tensor
     delta_d: torch.Tensor
     Sinv: Optional[torch.Tensor]     # [ns, ns] explicit root inverse (LDL)
-    ok: torch.Tensor                 # scalar factorization-health flag
+    ok: torch.Tensor                 # factorization-health flag (per LP)
     extra_root: object = 0.0         # extra root-only shift applied by the
-                                     # in-factorize escalation
+                                     # in-factorize escalation (per LP)
+
+
+def _mv(A, x):
+    """A x for a matrix A [..., m, k] and a vector x [..., k], batched or
+    not.  A single LP's matvec stays a matrix-vector product (a product is
+    not exact: as a one-column matrix product it would round otherwise)."""
+    if x.ndim == 1 and A.ndim == 2:
+        return A @ x
+    return (A @ x[..., None])[..., 0]
 
 
 def _tri_solve(L, b, transpose=False):
@@ -90,28 +108,42 @@ def _bchol_solve(L, b):
     return _tri_solve(L, _tri_solve(L, b), transpose=True)
 
 
-def _cholesky(S):
-    """Cholesky factor of (S + S')/2 and a health flag; a failed
-    factorization does not raise (the IPM escalates its regularization
-    instead).  The JAX package's `jnp.linalg.cholesky` symmetrizes its
-    input the same way: a Schur complement built from inexact leaf solves
-    (the sparse backend's capped CG) is not symmetric, and the lower
-    triangle alone is another matrix."""
+def _cholesky(S, nb: int = 0):
+    """Cholesky factor of (S + S')/2 and a health flag (per LP over the
+    `nb` leading batch axes); a failed factorization does not raise (the
+    IPM escalates its regularization instead).  The JAX package's
+    `jnp.linalg.cholesky` symmetrizes its input the same way: a Schur
+    complement built from inexact leaf solves (the sparse backend's capped
+    CG) is not symmetric, and the lower triangle alone is another
+    matrix."""
     L, info = torch.linalg.cholesky_ex((S + S.mT) / 2)
-    return L, (info == 0).all() & torch.isfinite(L).all()
+    return L, (reduce_all(torch.all, info == 0, nb)
+               & reduce_all(torch.all, torch.isfinite(L), nb))
 
 
-def _absmax(t):
-    return t.abs().max() if t.numel() else t.new_zeros(())
+def _root_cholesky(S, nb: int = 0):
+    """`_cholesky` for the two-level root's blocks: in f64 on the card the
+    potf2 kernel, LAPACK's unblocked order (cuSOLVER's potrf accepts root
+    blocks singular to working precision that LAPACK refuses: ROADMAP.md
+    §3, F3); on the CPU, and in f32, torch.linalg (on the CPU, LAPACK)."""
+    if S.device.type == "cuda" and S.dtype == torch.float64:
+        return cholesky_potf2(S)
+    return _cholesky(S, nb)
 
 
-def scalar(v, like: torch.Tensor) -> torch.Tensor:
-    """A shift as a 0-dim tensor of `like`'s dtype and device: a tensor is
-    converted, a Python number filled in on the device (no copy from the
-    host, which a graph capture refuses)."""
+def scalar(v, like: torch.Tensor, shape=()) -> torch.Tensor:
+    """A shift as a tensor of `like`'s dtype and device and of `shape`
+    (the batch shape: one shift per LP): a tensor is converted (and
+    broadcast to `shape`), a Python number filled in on the device (no
+    copy from the host, which a graph capture refuses).  The shape does
+    not depend on how the shift was given, so that the branches of a
+    captured `dev_cond` that factor with a number and with per-LP tensors
+    return the same shapes."""
+    shape = tuple(shape)
     if isinstance(v, torch.Tensor):
-        return v.to(dtype=like.dtype, device=like.device)
-    return torch.full((), v, dtype=like.dtype, device=like.device)
+        v = v.to(dtype=like.dtype, device=like.device)
+        return v if tuple(v.shape) == shape else v.expand(shape).clone()
+    return torch.full(shape, v, dtype=like.dtype, device=like.device)
 
 
 class ArrowBackend:
@@ -146,6 +178,7 @@ class ArrowBackend:
                 raise NotImplementedError(f"ArrowBackend({name}=...) is not "
                                           f"ported yet")
         self.lp = lp
+        self.batch_shape = lp.batch_shape
         self.factor_dtype = factor_dtype
         if explicit_inverse is None:
             explicit_inverse = factor_dtype == torch.float32
@@ -172,94 +205,114 @@ class ArrowBackend:
             icupp=RVec(lp.icupp0, lp.icuppN, lp.icuppl),
             cupp=RVec(lp.cupp0, lp.cuppN, lp.cuppl),
         )
-        local = (lp.ixlowN.sum() + lp.ixuppN.sum() + lp.iclowN.sum()
-                 + lp.icuppN.sum())
-        rep = (lp.ixlow0.sum() + lp.ixupp0.sum() + lp.iclow0.sum()
-               + lp.icupp0.sum() + lp.iclowl.sum() + lp.icuppl.sum())
+        nb = len(self.batch_shape)
+
+        def tot(t):
+            return reduce_all(torch.sum, t, nb)
+
+        local = (tot(lp.ixlowN) + tot(lp.ixuppN) + tot(lp.iclowN)
+                 + tot(lp.icuppN))
+        rep = (tot(lp.ixlow0) + tot(lp.ixupp0) + tot(lp.iclow0)
+               + tot(lp.icupp0) + tot(lp.iclowl) + tot(lp.icuppl))
         self.num_bound_pairs = torch.clamp(local + rep, min=1.0)
         self._init_leaves()
 
     def _init_leaves(self):
         """Leaf operators: the dense merged M = [B; D] and its factor-dtype
         copy (the sparse backend keeps ELL operators instead)."""
-        self.M = torch.cat([self.lp.B, self.lp.D], dim=1)      # [N, a, n]
+        self.M = torch.cat([self.lp.B, self.lp.D], dim=-2)     # [N, a, n]
         self.Mf = self.M.to(self.factor_dtype)
 
     # ---- matvecs (recursive tree mult of the reference, collapsed to
     #      batched einsum) ----
     def Ax(self, x: XVec) -> RVec:
         lp = self.lp
-        first = lp.A0 @ x.first
-        blocks = (torch.einsum("imk,k->im", lp.A, x.first)
-                  + torch.einsum("imn,in->im", lp.B, x.blocks))
-        link = lp.F0 @ x.first + torch.einsum("iln,in->l", lp.F, x.blocks)
+        first = _mv(lp.A0, x.first)
+        blocks = (torch.einsum("...imk,...k->...im", lp.A, x.first)
+                  + torch.einsum("...imn,...in->...im", lp.B, x.blocks))
+        link = (_mv(lp.F0, x.first)
+                + torch.einsum("...iln,...in->...l", lp.F, x.blocks))
         return RVec(first, blocks, link)
 
     def ATy(self, y: RVec) -> XVec:
         lp = self.lp
-        first = (lp.A0.T @ y.first + lp.F0.T @ y.link
-                 + torch.einsum("imk,im->k", lp.A, y.blocks))
-        blocks = (torch.einsum("imn,im->in", lp.B, y.blocks)
-                  + torch.einsum("iln,l->in", lp.F, y.link))
+        first = (_mv(lp.A0.mT, y.first) + _mv(lp.F0.mT, y.link)
+                 + torch.einsum("...imk,...im->...k", lp.A, y.blocks))
+        blocks = (torch.einsum("...imn,...im->...in", lp.B, y.blocks)
+                  + torch.einsum("...iln,...l->...in", lp.F, y.link))
         return XVec(first, blocks)
 
     def Cx(self, x: XVec) -> RVec:
         lp = self.lp
-        first = lp.C0 @ x.first
-        blocks = (torch.einsum("imk,k->im", lp.C, x.first)
-                  + torch.einsum("imn,in->im", lp.D, x.blocks))
-        link = lp.G0 @ x.first + torch.einsum("iln,in->l", lp.G, x.blocks)
+        first = _mv(lp.C0, x.first)
+        blocks = (torch.einsum("...imk,...k->...im", lp.C, x.first)
+                  + torch.einsum("...imn,...in->...im", lp.D, x.blocks))
+        link = (_mv(lp.G0, x.first)
+                + torch.einsum("...iln,...in->...l", lp.G, x.blocks))
         return RVec(first, blocks, link)
 
     def CTz(self, z: RVec) -> XVec:
         lp = self.lp
-        first = (lp.C0.T @ z.first + lp.G0.T @ z.link
-                 + torch.einsum("imk,im->k", lp.C, z.blocks))
-        blocks = (torch.einsum("imn,im->in", lp.D, z.blocks)
-                  + torch.einsum("iln,l->in", lp.G, z.link))
+        first = (_mv(lp.C0.mT, z.first) + _mv(lp.G0.mT, z.link)
+                 + torch.einsum("...imk,...im->...k", lp.C, z.blocks))
+        blocks = (torch.einsum("...imn,...im->...in", lp.D, z.blocks)
+                  + torch.einsum("...iln,...l->...in", lp.G, z.link))
         return XVec(first, blocks)
 
     def objective(self, x: XVec) -> torch.Tensor:
-        return _vdot(self.lp.c0, x.first) + _vdot(self.lp.cN, x.blocks)
+        if not self.batch_shape:
+            return _vdot(self.lp.c0, x.first) + _vdot(self.lp.cN, x.blocks)
+        return ((self.lp.c0 * x.first).sum(-1)
+                + (self.lp.cN * x.blocks).flatten(-2).sum(-1))
 
     def datanorm(self) -> torch.Tensor:
         return self.lp.datanorm()
 
     # ---- leaf factorization ----
+    def _all(self, t):
+        """`t.all()`, per LP over a stack of LPs."""
+        return reduce_all(torch.all, t, len(self.batch_shape))
+
     def _leaf_factor(self, M, MEi, Fd):
         """Factor the condensed leaf systems Neq_i = MEi M' + diag(Fd).
+        Over a stack of LPs the kernels take all B·N leaves in one call.
 
         Returns (L, Ninv, leaf_ok) as `_apply_Ninv_multi` consumes them."""
         fd = self.factor_dtype
-        Neq = (torch.einsum("iak,ibk->iab", MEi.to(fd), self.Mf)
+        Neq = (torch.einsum("...iak,...ibk->...iab", MEi.to(fd), self.Mf)
                + torch.diag_embed(Fd.to(fd)))
+        a = Neq.shape[-1]
+        flat = Neq.reshape(-1, a, a)
+
+        def unfold(t):
+            return t.reshape(Neq.shape[:-2] + t.shape[1:])
+
         if self.sweep_kernel:
-            Ninv, df = sweep_inverse(Neq)
-            leaf_ok = torch.isfinite(Ninv).all() & (df > 0.0).all()
+            Ninv, df = map(unfold, sweep_inverse(flat))
+            leaf_ok = self._all(torch.isfinite(Ninv)) & self._all(df > 0.0)
             return None, Ninv, leaf_ok
         if self.ldl_kernel:
-            Xf, df = ldl_inverse_factors(Neq)
+            Xf, df = ldl_inverse_factors(flat)
             if self.factored_inverse:
-                leaf_ok = torch.isfinite(Xf).all() & (df > 0.0).all()
+                Xf, df = unfold(Xf), unfold(df)
+                leaf_ok = self._all(torch.isfinite(Xf)) & self._all(df > 0.0)
                 return (Xf, 1.0 / df), None, leaf_ok
-            Ninv = inverse_from_factors(Xf, df)
-            leaf_ok = torch.isfinite(Ninv).all() & (df > 0.0).all()
+            Ninv, df = unfold(inverse_from_factors(Xf, df)), unfold(df)
+            leaf_ok = self._all(torch.isfinite(Ninv)) & self._all(df > 0.0)
             return None, Ninv, leaf_ok
-        L, leaf_ok = _cholesky(Neq)
+        L, leaf_ok = _cholesky(Neq, len(self.batch_shape))
         if not self.explicit_inverse:
             return L, None, leaf_ok
-        a = M.shape[1]
-        eye = torch.eye(a, dtype=fd, device=Neq.device).expand(
-            self.lp.N, a, a)
+        eye = torch.eye(a, dtype=fd, device=Neq.device).expand(Neq.shape)
         Ninv = _bchol_solve(L, eye)
-        return L, Ninv, leaf_ok & torch.isfinite(Ninv).all()
+        return L, Ninv, leaf_ok & self._all(torch.isfinite(Ninv))
 
     def _apply_Ninv_multi(self, L, Ninv, t):
         """Neq^{-1} t for multi-RHS t [N, a, c] via the stored leaf factor:
         factored (X, 1/d) pair, explicit Ninv, or Cholesky L."""
         if self.factored_inverse:
             Xf, dinv = L
-            return Xf.mT @ (dinv[:, :, None] * (Xf @ t))
+            return Xf.mT @ (dinv[..., None] * (Xf @ t))
         if Ninv is not None:
             return Ninv @ t
         return _bchol_solve(L, t)
@@ -273,38 +326,42 @@ class ArrowBackend:
         n0, mEl, mIl = lp.n0, lp.mEl, lp.mIl
         mE, mI = lp.mE, lp.mI
 
-        Einv = 1.0 / (Dx_blocks + delta_p)                     # [N, n]
+        Einv = 1.0 / (Dx_blocks + bcast(delta_p, Dx_blocks))   # [N, n]
         Om = 1.0 / Ominv_blocks                                # [N, mI]
         dt = Einv.dtype
         M = self.M
-        dd = scalar(delta_d, Einv)
-        Fd = torch.cat([dd.expand(lp.N, mE), Om + dd], dim=1)  # [N, mE+mI]
-        MEi = M * Einv[:, None, :]
+        dd = bcast(scalar(delta_d, Einv, self.batch_shape), Om)
+        lead = Om.shape[:-1]                                   # [*batch, N]
+        Fd = torch.cat([dd.expand(lead + (mE,)), Om + dd],
+                       dim=-1)                                 # [N, mE+mI]
+        MEi = M * Einv[..., None, :]
         L, Ninv, leaf_ok = self._leaf_factor(M, MEi, Fd)
 
         # ---- border solves U = K^{-1} R (structure-exploiting) ----
         # E^{-1} R_x = [0 | Einv*F' | Einv*G']
         EiRx = torch.cat([
-            torch.zeros((lp.N, lp.n, n0), dtype=dt, device=Einv.device),
-            lp.F.mT * Einv[:, :, None],
-            lp.G.mT * Einv[:, :, None]], dim=2)                # [N, n, nS]
+            torch.zeros(lead + (lp.n, n0), dtype=dt, device=Einv.device),
+            lp.F.mT * Einv[..., None],
+            lp.G.mT * Einv[..., None]], dim=-1)                # [N, n, nS]
         Rm = torch.cat([
-            torch.cat([lp.A, lp.C], dim=1),
-            torch.zeros((lp.N, mE + mI, mEl + mIl), dtype=dt,
-                        device=Einv.device)], dim=2)           # [N, a, nS]
+            torch.cat([lp.A, lp.C], dim=-2),
+            torch.zeros(lead + (mE + mI, mEl + mIl), dtype=dt,
+                        device=Einv.device)], dim=-1)          # [N, a, nS]
         Mf = self.Mf
         EiRxf = EiRx.to(fd)
         rhsU = Mf @ EiRxf - Rm.to(fd)
         Um = self._apply_Ninv_multi(L, Ninv, rhsU)
-        Ux = EiRxf - Einv.to(fd)[:, :, None] * (Mf.mT @ Um)
+        Ux = EiRxf - Einv.to(fd)[..., None] * (Mf.mT @ Um)
 
         # ---- Schur contribution  R'U: rows [A'U_my + C'U_mz ; F U_x ; G U_x]
-        contrib_x0 = (torch.einsum("imk,imS->kS", lp.A.to(fd), Um[:, :mE])
-                      + torch.einsum("imk,imS->kS", lp.C.to(fd), Um[:, mE:]))
-        contrib_yl = torch.einsum("ilm,imS->lS", lp.F.to(fd), Ux)
-        contrib_zl = torch.einsum("ilm,imS->lS", lp.G.to(fd), Ux)
+        contrib_x0 = (torch.einsum("...imk,...imS->...kS", lp.A.to(fd),
+                                   Um[..., :mE, :])
+                      + torch.einsum("...imk,...imS->...kS", lp.C.to(fd),
+                                     Um[..., mE:, :]))
+        contrib_yl = torch.einsum("...ilm,...imS->...lS", lp.F.to(fd), Ux)
+        contrib_zl = torch.einsum("...ilm,...imS->...lS", lp.G.to(fd), Ux)
         contrib = torch.cat([contrib_x0, contrib_yl, contrib_zl],
-                            dim=0).to(dt)
+                            dim=-2).to(dt)
         return L, Ninv, Einv, Om, Ux.to(dt), Um.to(dt), contrib, leaf_ok
 
     def factorize(self, Dx: XVec, Ominv: RVec, delta_p, delta_d
@@ -323,28 +380,35 @@ class ArrowBackend:
         dt = Einv.dtype
         dev = Einv.device
         # ---- root matrix S over s0full = [x0; y0; z0; yl; zl] ----
-        Einv0 = 1.0 / (Dx.first + delta_p)
+        nb = len(self.batch_shape)
+        Einv0 = 1.0 / (Dx.first + bcast(delta_p, Dx.first))
         Om0 = 1.0 / Ominv.first
         Oml = 1.0 / Ominv.link
         nD = m0E + m0I + mEl + mIl
+        ns = n0 + nD
         yl0, zl0 = m0E + m0I, m0E + m0I + mEl      # dual offsets of yl, zl
 
         # contrib rows/cols are ordered [x0(n0), yl(mEl), zl(mIl)]
-        cxx, cyl, czl = contrib[:n0], contrib[n0:n0 + mEl], contrib[n0 + mEl:]
-        S11 = torch.diag(Dx.first + delta_p) - cxx[:, :n0]     # [n0, n0]
+        cxx = contrib[..., :n0, :]
+        cyl = contrib[..., n0:n0 + mEl, :]
+        czl = contrib[..., n0 + mEl:, :]
+        S11 = (torch.diag_embed(Dx.first + bcast(delta_p, Dx.first))
+               - cxx[..., :n0])                                # [n0, n0]
         # dual-space layout: [y0(m0E), z0(m0I), yl(mEl), zl(mIl)]
-        S12 = torch.cat([lp.A0.T, lp.C0.T,
-                         lp.F0.T - cxx[:, n0:n0 + mEl],
-                         lp.G0.T - cxx[:, n0 + mEl:]], dim=1)  # [n0, nD]
-        delta_p = scalar(delta_p, Einv)
-        delta_d = scalar(delta_d, Einv)
-        F0d = torch.cat([delta_d.expand(m0E), Om0 + delta_d,
-                         delta_d.expand(mEl), Oml + delta_d])
-        S22 = -torch.diag(F0d)
-        S22[yl0:zl0, yl0:zl0] -= cyl[:, n0:n0 + mEl]
-        S22[yl0:zl0, zl0:] -= cyl[:, n0 + mEl:]
-        S22[zl0:, yl0:zl0] -= czl[:, n0:n0 + mEl]
-        S22[zl0:, zl0:] -= czl[:, n0 + mEl:]
+        S12 = torch.cat([lp.A0.mT, lp.C0.mT,
+                         lp.F0.mT - cxx[..., n0:n0 + mEl],
+                         lp.G0.mT - cxx[..., n0 + mEl:]], dim=-1)  # [n0, nD]
+        delta_p = scalar(delta_p, Einv, self.batch_shape)
+        delta_d = scalar(delta_d, Einv, self.batch_shape)
+        dd = bcast(delta_d, Om0)
+        batch = Om0.shape[:-1]
+        F0d = torch.cat([dd.expand(batch + (m0E,)), Om0 + dd,
+                         dd.expand(batch + (mEl,)), Oml + dd], dim=-1)
+        S22 = -torch.diag_embed(F0d)
+        S22[..., yl0:zl0, yl0:zl0] -= cyl[..., n0:n0 + mEl]
+        S22[..., yl0:zl0, zl0:] -= cyl[..., n0 + mEl:]
+        S22[..., zl0:, yl0:zl0] -= czl[..., n0:n0 + mEl]
+        S22[..., zl0:, zl0:] -= czl[..., n0 + mEl:]
 
         common = dict(L=L, Ninv=Ninv, Einv=Einv, Om=Om, Ux=Ux, Um=Um,
                       Om0=Om0, Oml=Oml, delta_p=delta_p, delta_d=delta_d)
@@ -353,25 +417,30 @@ class ArrowBackend:
             # ---- single quasidefinite root factor+inverse (LDL kernel):
             # SPD primal block, negative-definite dual block -> unpivoted
             # LDL is stable (Vanderbei); the explicit inverse turns every
-            # root solve into one matvec ----
-            Sfull = torch.cat([torch.cat([S11, S12], dim=1),
-                               torch.cat([S12.T, S22], dim=1)], dim=0).to(fd)
+            # root solve into one matvec.  A stack of LPs factors its B
+            # roots in one [B, ns, ns] call ----
+            Sfull = torch.cat([torch.cat([S11, S12], dim=-1),
+                               torch.cat([S12.mT, S22], dim=-1)],
+                              dim=-2).to(fd)
             sgn = torch.cat([torch.ones(n0, dtype=fd, device=dev),
                              -torch.ones(nD, dtype=fd, device=dev)])
 
             def _root_factor(extra):
-                S = (Sfull + torch.diag(sgn * extra))[None]
+                S = Sfull + torch.diag_embed(sgn * extra[..., None])
+                flat = S.reshape(-1, ns, ns)
                 if self.sweep_kernel:
-                    Sinv1, ds = sweep_inverse(S)
-                    Sinv_ = Sinv1[0]
+                    Sinv1, ds = sweep_inverse(flat)
                 else:
-                    Xs, ds = ldl_inverse_factors(S)
-                    Sinv_ = inverse_from_factors(Xs, ds)[0]
-                ok_ = (torch.isfinite(Sinv_).all() & (ds[:, :n0] > 0.0).all()
-                       & (ds[:, n0:] < 0.0).all())
+                    Xs, ds = ldl_inverse_factors(flat)
+                    Sinv1 = inverse_from_factors(Xs, ds)
+                Sinv_ = Sinv1.reshape(S.shape)
+                ds = ds.reshape(S.shape[:-1])
+                ok_ = (self._all(torch.isfinite(Sinv_))
+                       & self._all(ds[..., :n0] > 0.0)
+                       & self._all(ds[..., n0:] < 0.0))
                 return Sinv_, ok_
 
-            extra = torch.zeros((), dtype=fd, device=dev)
+            extra = torch.zeros(self.batch_shape, dtype=fd, device=dev)
             Sinv, root_ok = _root_factor(extra)
             # the sweep's pivots are no reliable health signal: its
             # failures stay on the outer regularization ladder
@@ -379,7 +448,7 @@ class ArrowBackend:
                 # Wrong-inertia failures in f32 sit in this small root
                 # system: escalate only the root shift in place instead of
                 # failing the whole factorization (an outer retry would
-                # redo every leaf factorization)
+                # redo every leaf factorization); per LP over a stack
                 def escalate(carry):
                     extra_, _, _ = carry
                     extra_ = torch.where(extra_ == 0.0,
@@ -395,24 +464,27 @@ class ArrowBackend:
                 # the solved system carries delta_p + extra on the
                 # first-stage primal diagonal and delta_d + extra on the
                 # root dual rows (_aug_residual reads both)
-                Einv0 = 1.0 / (Dx.first + delta_p + extra.to(dt))
+                Einv0 = 1.0 / (Dx.first + bcast(delta_p, Dx.first)
+                               + bcast(extra.to(dt), Dx.first))
             return ArrowFactors(chol1=None, S11inv=None, T=None, chol2=None,
                                 Sdinv=None, Einv0=Einv0, Sinv=Sinv,
                                 ok=leaf_ok & root_ok, extra_root=extra.to(dt),
                                 **common)
 
         # ---- root two-level condensation ----
-        chol1, ok1 = _cholesky(S11.to(fd))
+        chol1, ok1 = _root_cholesky(S11.to(fd), nb)
         T = _bchol_solve(chol1, S12.to(fd))
-        Sdual = -(S22.to(fd) - S12.to(fd).T @ T)
-        chol2, ok2 = _cholesky(Sdual)
+        Sdual = -(S22.to(fd) - S12.to(fd).mT @ T)
+        chol2, ok2 = _root_cholesky(Sdual, nb)
         root_ok = ok1 & ok2
         S11inv = Sdinv = None
         if self.explicit_inverse:
-            S11inv = _bchol_solve(chol1, torch.eye(n0, dtype=fd, device=dev))
-            Sdinv = _bchol_solve(chol2, torch.eye(nD, dtype=fd, device=dev))
-            root_ok = (root_ok & torch.isfinite(S11inv).all()
-                       & torch.isfinite(Sdinv).all())
+            S11inv = _bchol_solve(chol1, torch.eye(
+                n0, dtype=fd, device=dev).expand(chol1.shape))
+            Sdinv = _bchol_solve(chol2, torch.eye(
+                nD, dtype=fd, device=dev).expand(chol2.shape))
+            root_ok = (root_ok & self._all(torch.isfinite(S11inv))
+                       & self._all(torch.isfinite(Sdinv)))
         return ArrowFactors(chol1=chol1, S11inv=S11inv, T=T.to(dt),
                             chol2=chol2, Sdinv=Sdinv, Einv0=Einv0, Sinv=None,
                             ok=leaf_ok & root_ok, **common)
@@ -436,11 +508,11 @@ class ArrowBackend:
         """Batched K_i^{-1} applied to (rho_x [N,n], rho_m [N,mE+mI])."""
         fd = self.factor_dtype
         M = self.M
-        t = torch.einsum("iam,im->ia", M, fac.Einv * rho_x) - rho_m
+        t = torch.einsum("...iam,...im->...ia", M, fac.Einv * rho_x) - rho_m
         gm = self._apply_Ninv_multi(fac.L, fac.Ninv,
                                     t[..., None].to(fd))[..., 0]
         gm = gm.to(rho_x.dtype)
-        gx = fac.Einv * (rho_x - torch.einsum("iam,ia->im", M, gm))
+        gx = fac.Einv * (rho_x - torch.einsum("...iam,...ia->...im", M, gm))
         return gx, gm
 
     def _root_solve(self, fac: ArrowFactors, p, q):
@@ -448,15 +520,15 @@ class ArrowBackend:
         fd = self.factor_dtype
         dt = p.dtype
         if fac.Sinv is not None:
-            u = (fac.Sinv @ torch.cat([p, q]).to(fd)).to(dt)
-            return u[:p.shape[0]], u[p.shape[0]:]
-        q2 = (q - fac.T.T @ p).to(fd)
+            u = _mv(fac.Sinv, torch.cat([p, q], dim=-1).to(fd)).to(dt)
+            return u[..., :p.shape[-1]], u[..., p.shape[-1]:]
+        q2 = (q - _mv(fac.T.mT, p)).to(fd)
         if self.explicit_inverse:
-            d = -(fac.Sdinv @ q2).to(dt)
-            a = (fac.S11inv @ p.to(fd)).to(dt) - fac.T @ d
+            d = -_mv(fac.Sdinv, q2).to(dt)
+            a = _mv(fac.S11inv, p.to(fd)).to(dt) - _mv(fac.T, d)
         else:
             d = -_bchol_solve(fac.chol2, q2).to(dt)   # Sdual = -(S22 - ..)
-            a = _bchol_solve(fac.chol1, p.to(fd)).to(dt) - fac.T @ d
+            a = _bchol_solve(fac.chol1, p.to(fd)).to(dt) - _mv(fac.T, d)
         return a, d
 
     def solve_reduced(self, fac: ArrowFactors, rhs: ReducedRhs,
@@ -465,11 +537,12 @@ class ArrowBackend:
         m0E, m0I, mEl = lp.m0E, lp.m0I, lp.mEl
         mE = lp.mE
 
+        nb = len(self.batch_shape)
         rho_x = -rhs.rhat_x.blocks
-        rho_m = torch.cat([-rhs.rA.blocks, -rhs.rhat_z.blocks], dim=1)
+        rho_m = torch.cat([-rhs.rA.blocks, -rhs.rhat_z.blocks], dim=-1)
         p0 = -rhs.rhat_x.first
         q0 = torch.cat([-rhs.rA.first, -rhs.rhat_z.first,
-                        -rhs.rA.link, -rhs.rhat_z.link])
+                        -rhs.rA.link, -rhs.rhat_z.link], dim=-1)
 
         state = self._solve_core(fac, p0, q0, rho_x, rho_m)
 
@@ -478,14 +551,15 @@ class ArrowBackend:
             # the working dtype (absorbs f32 factorization error; the role
             # of solveCompressedIterRefin, LinearSystem.C:877)
             rhs_norm = torch.clamp(
-                torch.maximum(_absmax(rho_x),
-                              torch.maximum(_absmax(p0), _absmax(q0))),
+                torch.maximum(_maxabs(rho_x, nb),
+                              torch.maximum(_maxabs(p0, nb),
+                                            _maxabs(q0, nb))),
                 min=1e-30)
 
             def resid_norm(st):
                 r = self._aug_residual(fac, p0, q0, rho_x, rho_m, *st)
-                nrm = torch.stack([_absmax(e) for e in
-                                   (r[2], r[3], r[0], r[1])]).max()
+                nrm = torch.stack([_maxabs(e, nb) for e in
+                                   (r[2], r[3], r[0], r[1])], -1).amax(-1)
                 return r, nrm
 
             def refine(carry):
@@ -495,8 +569,7 @@ class ArrowBackend:
                 res2, nrm2 = resid_norm(new)
                 # keep the better iterate if refinement diverged
                 worse = nrm2 > nrm_
-                return (tuple(torch.where(worse, s, n)
-                              for s, n in zip(state_, new)), res2,
+                return (select(worse, state_, new), res2,
                         torch.where(worse, nrm_, nrm2), nrm_)
 
             res, nrm = resid_norm(state)
@@ -508,8 +581,8 @@ class ArrowBackend:
         dx_first, dx_blocks, d0, gm = state
         # unpack: d0 = [yhat0, zhat0, yhat_l, zhat_l]; gm = [yhat_i, zhat_i]
         yl0, zl0 = m0E + m0I, m0E + m0I + mEl
-        dy = RVec(-d0[:m0E], -gm[:, :mE], -d0[yl0:zl0])
-        dz = RVec(-d0[m0E:yl0], -gm[:, mE:], -d0[zl0:])
+        dy = RVec(-d0[..., :m0E], -gm[..., :mE], -d0[..., yl0:zl0])
+        dz = RVec(-d0[..., m0E:yl0], -gm[..., mE:], -d0[..., zl0:])
         return XVec(dx_first, dx_blocks), dy, dz
 
     def _solve_core(self, fac: ArrowFactors, p0, q0, rho_x, rho_m):
@@ -520,21 +593,22 @@ class ArrowBackend:
 
         # Lsolve: leaf solves + accumulate border products
         gx, gm = self._leaf_solve(fac, rho_x, rho_m)
-        acc_x0 = (torch.einsum("imk,im->k", lp.A, gm[:, :mE])
-                  + torch.einsum("imk,im->k", lp.C, gm[:, mE:]))
-        acc_yl = torch.einsum("ilm,im->l", lp.F, gx)
-        acc_zl = torch.einsum("ilm,im->l", lp.G, gx)
+        acc_x0 = (torch.einsum("...imk,...im->...k", lp.A, gm[..., :mE])
+                  + torch.einsum("...imk,...im->...k", lp.C, gm[..., mE:]))
+        acc_yl = torch.einsum("...ilm,...im->...l", lp.F, gx)
+        acc_zl = torch.einsum("...ilm,...im->...l", lp.G, gx)
 
         p = p0 - acc_x0
-        q = torch.cat([q0[:yl0], q0[yl0:zl0] - acc_yl, q0[zl0:] - acc_zl])
+        q = torch.cat([q0[..., :yl0], q0[..., yl0:zl0] - acc_yl,
+                       q0[..., zl0:] - acc_zl], dim=-1)
 
         # Dsolve: root dense solve
         a, d = self._root_solve(fac, p, q)
 
         # Ltsolve: back-substitute into blocks
-        s0 = torch.cat([a, d[yl0:zl0], d[zl0:]])
-        dx_blocks = gx - torch.einsum("imS,S->im", fac.Ux, s0)
-        gm_out = gm - torch.einsum("iaS,S->ia", fac.Um, s0)
+        s0 = torch.cat([a, d[..., yl0:zl0], d[..., zl0:]], dim=-1)
+        dx_blocks = gx - torch.einsum("...imS,...S->...im", fac.Ux, s0)
+        gm_out = gm - torch.einsum("...iaS,...S->...ia", fac.Um, s0)
         return a, dx_blocks, d, gm_out
 
     def _aug_residual(self, fac, p0, q0, rho_x, rho_m,
@@ -552,9 +626,9 @@ class ArrowBackend:
         dd_root = dd + fac.extra_root
         yl0, zl0 = m0E + m0I, m0E + m0I + mEl
 
-        y0h, z0h = d0[:m0E], d0[m0E:yl0]
-        ylh, zlh = d0[yl0:zl0], d0[zl0:]
-        yih, zih = gm[:, :mE], gm[:, mE:]
+        y0h, z0h = d0[..., :m0E], d0[..., m0E:yl0]
+        ylh, zlh = d0[..., yl0:zl0], d0[..., zl0:]
+        yih, zih = gm[..., :mE], gm[..., mE:]
 
         ATyh = self.ATy(RVec(y0h, yih, ylh))
         CTzh = self.CTz(RVec(z0h, zih, zlh))
@@ -566,15 +640,15 @@ class ArrowBackend:
         Eb = 1.0 / fac.Einv
         top_first = E0 * dx_first + ATyh.first + CTzh.first
         top_blocks = Eb * dx_blocks + ATyh.blocks + CTzh.blocks
-        eq_first = Ax.first - dd_root * y0h
-        eq_blocks = Ax.blocks - dd * yih
-        eq_link = Ax.link - dd_root * ylh
-        iq_first = Cx.first - (fac.Om0 + dd_root) * z0h
-        iq_blocks = Cx.blocks - (fac.Om + dd) * zih
-        iq_link = Cx.link - (fac.Oml + dd_root) * zlh
+        eq_first = Ax.first - bcast(dd_root, y0h) * y0h
+        eq_blocks = Ax.blocks - bcast(dd, yih) * yih
+        eq_link = Ax.link - bcast(dd_root, ylh) * ylh
+        iq_first = Cx.first - (fac.Om0 + bcast(dd_root, z0h)) * z0h
+        iq_blocks = Cx.blocks - (fac.Om + bcast(dd, zih)) * zih
+        iq_link = Cx.link - (fac.Oml + bcast(dd_root, zlh)) * zlh
 
         ex0 = p0 - top_first
         ex = rho_x - top_blocks
-        em = rho_m - torch.cat([eq_blocks, iq_blocks], dim=1)
-        eq0 = q0 - torch.cat([eq_first, iq_first, eq_link, iq_link])
+        em = rho_m - torch.cat([eq_blocks, iq_blocks], dim=-1)
+        eq0 = q0 - torch.cat([eq_first, iq_first, eq_link, iq_link], dim=-1)
         return ex0, eq0, ex, em

@@ -28,11 +28,13 @@ residual, step lengths and Gondzio correctors.  The last
 line is the card's name and power limit.
 
 `--fused` times the fused loop (`solve_fused`) instead, on
-`chip_smoke.FUSED_PATHS` (default: all; run one per process: a third
-profiler session in one process faulted on the sparse graph's replay,
-ROADMAP.md §3, F4): per path one JSON line with the first call (capture included),
-`--reps` warm solves, the graph's replay alone (CUDA events), the busy
-share and the host's CUDA calls per warm solve.
+`chip_smoke.FUSED_PATHS` and the batches of `chip_smoke.BATCH_PATHS`
+(`solve_fused_batch_async` over B LPs of the bench's stream; default:
+every single path; run one per process: a third profiler session in one
+process faulted on the sparse graph's replay, ROADMAP.md §3, F4): per
+path one JSON line with the first call (capture included), `--reps` warm
+solves, the graph's replay alone (CUDA events), the busy share and the
+host's CUDA calls per warm solve.
 
 `--ldl` times the LDL kernel instead, at `chip_smoke.LDL_SHAPES`: per
 shape one JSON line with its device time per call (profiler), each of its
@@ -172,6 +174,8 @@ def profile_fused(name, reps):
     host clock (each ends in the fetch of its result), the graph's replay
     alone timed with CUDA events (`chip_smoke.graph_ms`), and the host's
     CUDA calls of one more warm solve under the profiler."""
+    if name in cs.BATCH_PATHS:
+        return profile_fused_batch(name, reps)
     path, over = cs.FUSED_PATHS[name]
     st = cs.setup(cs.paths()[path], **over)
     cs.reset_counts()
@@ -196,6 +200,47 @@ def profile_fused(name, reps):
         captured_launches=captured, host_calls_per_solve=calls,
         graph_ms=dev_ms, device_ms_per_iteration=dev_ms / max(it, 1),
         busy_share=dev_ms / 1e3 / solve_s)), flush=True)
+
+
+def profile_fused_batch(name, reps):
+    """`profile_fused` for a batch of `chip_smoke.BATCH_PATHS`: B LPs of
+    the bench's stream through `solve_fused_batch_async`, each call timed
+    to the fetch of its per-LP results, iterations summed over the LPs,
+    the replay per loop trip (the trips of the LP that ends last)."""
+    path, B = cs.BATCH_PATHS[name]
+    st = cs.setup(cs.paths()[path])
+    lps = cs.stream_lps(st.lp, B)
+
+    def run():
+        return cs.batch_rows(st.solver.solve_fused_batch_async(lps)[1])
+
+    cs.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows = run()
+    first_s = time.perf_counter() - t0
+    captured = cs.read_captured()
+    peak = torch.cuda.max_memory_allocated()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    solve_s = sorted(times)[len(times) // 2]
+    dev_ms = cs.cuda_ms(cs.batch_graph(st.solver, B).graph.replay, 3)
+    calls = cs.host_launches(run)
+    its = sum(int(r[1]) for r in rows)
+    trips = max(int(r[3]) for r in rows)
+    print(json.dumps(dict(
+        path=name, fused=True, batch=B, graph=True,
+        status=[int(r[0]) for r in rows],
+        iterations=[int(r[1]) for r in rows], loop_trips=trips,
+        objective=[r[2] for r in rows], first_solve_s=first_s,
+        solve_s=solve_s, solve_s_all=times, solves_per_s=B / solve_s,
+        iter_per_s=its / solve_s, captured_launches=captured,
+        host_calls_per_solve=calls, graph_ms=dev_ms,
+        graph_ms_per_trip=dev_ms / trips, busy_share=dev_ms / 1e3 / solve_s,
+        peak_memory_gb=peak / 1e9)), flush=True)
 
 
 def _other_lib(root, source, stem):
@@ -472,7 +517,8 @@ def main(argv):
                          "turns")
     ap.add_argument("--fused", nargs="*", metavar="path", default=None,
                     help=f"time the fused loop (solve_fused) on "
-                         f"{', '.join(cs.FUSED_PATHS)} (default: all)")
+                         f"{', '.join(cs.FUSED_PATHS)} (default: all), or "
+                         f"a batch: {', '.join(cs.BATCH_PATHS)}")
     ap.add_argument("--reps", type=int, default=3,
                     help="with --fused: warm solves timed")
     args = ap.parse_args(argv)
@@ -488,7 +534,8 @@ def main(argv):
     if args.sweep:
         sweep_table(args.sweep_against)
     if args.fused is not None:
-        bad = sorted(set(args.fused) - set(cs.FUSED_PATHS))
+        bad = sorted(set(args.fused) - set(cs.FUSED_PATHS)
+                     - set(cs.BATCH_PATHS))
         if bad:
             ap.error(f"unknown fused paths {bad}")
         for name in args.fused or list(cs.FUSED_PATHS):

@@ -8,6 +8,11 @@ against the JAX package), on the CPU unless an entry says the card.
     PYTHONPATH=. python tests/torch_faults.py f3 NAME
     PYTHONPATH=. python tests/torch_faults.py replay {all,SCENARIO...}
     PYTHONPATH=. python tests/torch_faults.py f3noise NAME {jax,port}
+    PYTHONPATH=. python tests/torch_faults.py f3lapack [cuda|cpu] [NAME...]
+    python3 tests/torch_faults.py batchnoise PATH B [REPS]
+    python3 tests/torch_faults.py batchinput PATH B [DRAWS]
+    PYTHONPATH=. python tests/torch_faults.py f32batch {jax,small} SEEDS...
+    PYTHONPATH=. python tests/torch_faults.py f32triple SEEDS...
     PYTHONPATH=. python tests/torch_faults.py f2cg N K TRIPS...
 
 f1: the f32 sweep solve of the two-scenario linking LP
@@ -37,10 +42,12 @@ f3: one GAMSsmall instance in f64 through the port's host loop on the card
 (F3), every step repeated on the CPU from the card's own iterate and with
 the card's shifts: per step the shifts, the factorization's health flag,
 mu after the step on both devices, the new iterates' relative difference,
-and for every Cholesky factorization of the step on either device its
-size, its flag, its backward error max|LL' - S| / max|S| and its smallest
-over largest squared pivot.  Then the same instance's host loop on the CPU
-alone, for its per-iteration mu.
+and for every `arrow_backend._cholesky` factorization of the step on
+either device its size, its flag, its backward error max|LL' - S| /
+max|S| and its smallest over largest squared pivot (since the potf2 fix
+the card's root goes through `_root_cholesky` and the kernel, so on the
+card these are the leaves' only).  Then the same instance's host loop on
+the CPU alone, for its per-iteration mu.
 
 f3noise: one GAMSsmall instance in f64 through a host loop on the CPU
 (ArrowBackend, default Options) with the input of every Cholesky
@@ -49,6 +56,49 @@ factorization multiplied by 1 + 1e-16 E, E symmetric standard normal
 instance's outcome turns on it, in the JAX package (jit off, so that numpy
 draws fresh noise per call) and in the port.  One line per seed: status,
 iterations, objective.
+
+f3lapack: the LAPACK-order cause of F3.  Each GAMSsmall instance named
+(by default the two that missed the acceptance on the card before the
+potf2 kernel) in f64 through the host loop and the fused loop of the port
+on the device given (default cuda), with the root's two Cholesky factors
+(S11 and the dual Schur complement) computed three ways: by torch.linalg
+(cuSOLVER on the card), by the plain torch Cholesky in LAPACK's unblocked
+order (dpotf2, `linalg/potf2.py::cholesky_potf2_ref`), and as the port
+computes them (on the card the potf2 kernel).  One line per run with
+status, iterations against the acceptance budget ceil(1.1 x recorded),
+objective, and, outside a capture, the smallest over largest squared pivot
+of every root factor.
+
+batchnoise: on the card, a batch of `chip_smoke.py` (PATH flagship or
+bigleaf, B LPs of the bench's stream, `chip_smoke.stream_lps`) through
+`solve_fused_batch_async`, each LP through `solve_fused`, and each LP
+REPS times (default 4) with rounding noise on every factorization input
+(`rounding_band`): per LP the batch's status, iterations and
+objective beside the single solve's and the noisy ones', to see whether
+an iteration count that the batch and the single solve disagree on turns
+on rounding.
+
+batchinput: on the card, `chip_smoke.py`'s fused_batch phase on PATH at
+B (its checks printed, not raised), then each LP's single solve DRAWS
+times (default 24) with 1e-16 relative noise on the LP's data
+(`chip_smoke.noisy_lp`): the counts, statuses and objectives the noise
+gives, the band its ±1-iteration allowance draws from.
+
+f32batch: on the CPU, f32 factors (`ArrowBackend(factor_dtype=f32)`,
+default options) on `random_arrowhead_lp(SEED, ...)` at the JAX package's
+batch test shape (jax: N=4, n=24, mE=10, mI=12, n0=6, m0E=3, m0I=3, mEl=3,
+mIl=3) or at N=2, n=48 (small): per seed the single fused solve's
+iterations and whether its root escalation fired, the iterations of the
+same LP three times in one batch, and of three single solves with its
+costs times 1 + 1e-15 N(0, 1) (torch generator seeded by SEED).
+
+f32triple: on the CPU, f32 factors, the JAX package's batch test batch
+(`random_arrowhead_lp(SEED, ...)` at its shape, costs times 1 + 1e-4 i, i
+= 0, 1, 2) through both packages: per seed and package the three single
+fused solves' iterations and objectives and the batch's
+(`solve_fused_batch_async`; the JAX package's f32 LDL in Pallas interpret
+mode, one compile for the batch), to see whether the JAX package's own
+f32 batch parts from its singles as the port's does.
 
 replay: the fault behind profiling the fused loop in-process (F4), on the
 card.  `replay all` (or several scenarios named) runs each scenario in a
@@ -315,6 +365,271 @@ def f3(name):
         cpu=dict(status=rc.status.name, iterations=rc.iterations,
                  objective=rc.objective, mu=[h.mu for h in rc.history]))),
         flush=True)
+
+
+def f3lapack(device="cuda", *names):
+    import math
+
+    import torch
+
+    import pips_ipmpp_tpu_torch.linalg.arrow_backend as ab
+    from pips_ipmpp_tpu_torch.core.options import Options
+    from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
+
+    names = names or ("hier_approach_4blocks_2by2",
+                      "singletonInequalityColumn_B1")
+    port = ab._root_cholesky
+    pivots = []
+
+    def recorded(chol):
+        def root(S, nb=0):
+            L, ok = chol(S, nb)
+            if S.device.type == "cpu" or \
+                    not torch.cuda.is_current_stream_capturing():
+                d = torch.diagonal(L, dim1=-2, dim2=-1) ** 2
+                pivots.append(float(d.min() / d.max()))
+            return L, ok
+        return root
+
+    # torch.linalg (LAPACK on the CPU, cuSOLVER on the card), the plain
+    # torch dpotf2 order, and the port's own root (on the card the potf2
+    # kernel)
+    roots = (("torch.linalg", ab._cholesky),
+             ("potf2_plain", lambda S, nb: cholesky_potf2_ref_flagged(S)),
+             ("port", port))
+    for name in names:
+        lp, entry = _golden_lp(name, device)
+        budget = math.ceil(1.1 * entry["iterations"])
+        for order, chol in roots:
+            ab._root_cholesky = recorded(chol)
+            solver = IPMSolver(partial(ab.ArrowBackend,
+                                       factor_dtype=torch.float64),
+                               Options(), device=device)
+            for loop in ("host", "fused"):
+                pivots.clear()
+                r = (solver.solve if loop == "host"
+                     else solver.solve_fused)(lp)
+                print(json.dumps(dict(
+                    fault="F3", name=name, device=device, root=order,
+                    loop=loop, graph=r.info.get("graph"),
+                    status=r.status.name, iterations=r.iterations,
+                    budget=budget, objective=r.objective,
+                    recorded_objective=entry["objective"],
+                    accepted=(r.status.name == "SUCCESSFUL_TERMINATION"
+                              and r.iterations <= budget
+                              and abs(r.objective - entry["objective"])
+                              < 1e-4),
+                    root_pivot_ratios=list(pivots))), flush=True)
+        ab._root_cholesky = port
+
+
+def cholesky_potf2_ref_flagged(S):
+    """The plain dpotf2-order Cholesky of (S + S')/2 with its health flag,
+    the kernel's arithmetic on any device."""
+    import torch
+
+    from pips_ipmpp_tpu_torch.linalg.potf2 import cholesky_potf2_ref
+    L, info = cholesky_potf2_ref((S + S.mT) / 2)
+    return L, (info == 0) & torch.isfinite(L).flatten(-2).all(-1)
+
+
+def rounding_band(st, lps, reps):
+    """Each LP's single fused solve `reps` times with every input of a
+    factorization (the LDL kernel's leaves and roots with f32 factors, the
+    Cholesky blocks with f64 factors) times 1 + u E, E symmetric standard
+    normal and u the factor dtype's unit roundoff (2^-24, 2^-53): rounding
+    noise of the factor arithmetic, as `f3noise` puts 1e-16 on every f64
+    Cholesky input.  The noise is drawn on the card
+    inside a graph of its own (a fresh draw on every replay, one per
+    solve; the same draw on every trip of a loop within it)."""
+    import torch
+
+    import chip_smoke as cs
+    from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
+    from pips_ipmpp_tpu_torch.linalg import arrow_backend as ab
+
+    plain = dict(ldl=ab.ldl_inverse_factors, chol=ab._cholesky,
+                 root=ab._root_cholesky)
+
+    def noisy(A):
+        u = torch.finfo(A.dtype).eps / 2
+        E = torch.randn_like(A)
+        return A * (1 + u * (E + E.mT) / 2)
+
+    solver = IPMSolver(st.solver.be_ctor, st.solver.opts, device=cs.DEVICE)
+    ab.ldl_inverse_factors = lambda A: plain["ldl"](noisy(A))
+    ab._cholesky = lambda S, nb=0: plain["chol"](noisy(S), nb)
+    ab._root_cholesky = lambda S, nb=0: plain["root"](noisy(S), nb)
+    try:
+        solver.solve_fused(lps[0])              # the capture, noise in it
+    finally:
+        ab.ldl_inverse_factors = plain["ldl"]
+        ab._cholesky = plain["chol"]
+        ab._root_cholesky = plain["root"]
+    torch.manual_seed(0)
+    out = [[solver.solve_fused(lp) for _ in range(reps)] for lp in lps]
+    del solver
+    return out
+
+
+def batchnoise(path, B, reps=4):
+    import os
+
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cs.pin_float32_precision()
+    st = cs.setup(cs.paths()[path])
+    st.solver.opts = st.solver.opts.replace(record_history=True)
+    lps = cs.stream_lps(st.lp, int(B))
+    _, info = st.solver.solve_fused_batch_async(lps)
+    rows = cs.batch_rows(info)
+    hist = torch.stack([info["history"].mu, info["history"].residual],
+                       -1).tolist()
+    singles = [st.solver.solve_fused(lp) for lp in lps]
+    bands = rounding_band(st, lps, int(reps))
+    for i, (single, band) in enumerate(zip(singles, bands)):
+        n = int(rows[i][1])
+        print(json.dumps(dict(
+            path=path, B=int(B), lp=i, batch_status=int(rows[i][0]),
+            batch_iterations=n, batch_objective=rows[i][2],
+            batch_mu_residual_last3=hist[i][max(n - 3, 0):n],
+            single_status=single.status.name,
+            single_iterations=single.iterations,
+            single_objective=single.objective,
+            single_mu_residual_last3=[
+                [h.mu, h.residual_norm] for h in single.history[-3:]],
+            single_final_mu_residual=[single.mu, single.residual_norm],
+            tolerances=st.solver.opts.tolerances(),
+            rounding=[[r.status.name, r.iterations, r.objective]
+                      for r in band])), flush=True)
+
+
+def batchinput(path, B, draws=24):
+    """`chip_smoke.py`'s fused_batch phase on one batch path (its checks
+    reported, not raised), then each LP's single fused solve `draws`
+    times under `chip_smoke.noisy_lp` (1e-16 relative noise on the LP's
+    data): the iteration counts and objectives the noise gives."""
+    import os
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    cs.pin_float32_precision()
+    cs._build.build()
+    cs._build.load()
+    name = f"{path}_batch{B}"
+    st = cs.setup(cs.paths()[path])
+    try:
+        cs.fused_batch(name, st, int(B), ["ldl_inverse_f32"])
+    except RuntimeError as e:
+        print("fused_batch check failed:", e, flush=True)
+    import torch
+    for i, lp in enumerate(cs.stream_lps(st.lp, int(B))):
+        gen = torch.Generator(device=lp.device).manual_seed(1000 + i)
+        runs = [st.solver.solve_fused(cs.noisy_lp(lp, gen))
+                for _ in range(int(draws))]
+        print(json.dumps(dict(path=path, B=int(B), lp=i,
+                              noisy_iterations=[r.iterations for r in runs],
+                              noisy_status=sorted({r.status.name
+                                                   for r in runs}),
+                              noisy_objectives=[r.objective for r in runs])),
+              flush=True)
+
+
+def f32batch(shape, *seeds):
+    import dataclasses
+
+    import torch
+
+    from pips_ipmpp_tpu_torch.core.options import Options
+    from pips_ipmpp_tpu_torch.io.synthetic import random_arrowhead_lp
+    from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
+    from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+
+    torch.set_num_threads(1)
+    dims = (dict(N=4, n=24, mE=10, mI=12, n0=6, m0E=3, m0I=3, mEl=3, mIl=3)
+            if shape == "jax" else dict(N=2, n=48))
+    fired = []
+    plain = ArrowBackend._assemble_root
+
+    def record(self, *a, **k):
+        fac = plain(self, *a, **k)
+        fired.append(bool((fac.extra_root > 0).any()))
+        return fac
+    ArrowBackend._assemble_root = record
+    solver = IPMSolver(partial(ArrowBackend, factor_dtype=torch.float32),
+                       Options(), device="cpu")
+    for seed in map(int, seeds):
+        lp = random_arrowhead_lp(seed, **dims)
+        fired.clear()
+        single = solver.solve_fused(lp)
+        escalated = any(fired)
+        _, info = solver.solve_fused_batch_async([lp, lp, lp])
+        gen = torch.Generator().manual_seed(seed)
+
+        def jitter(t):
+            return t * (1 + 1e-15 * torch.randn(t.shape, generator=gen,
+                                                dtype=t.dtype))
+        noisy = [solver.solve_fused(dataclasses.replace(
+            lp, c0=jitter(lp.c0), cN=jitter(lp.cN))).iterations
+            for _ in range(3)]
+        print(json.dumps(dict(shape=shape, seed=seed,
+                              single=single.iterations,
+                              status=single.status.name,
+                              root_escalation=escalated,
+                              batch=info["iterations"].tolist(),
+                              noisy=noisy)), flush=True)
+    ArrowBackend._assemble_root = plain
+
+
+def f32triple(*seeds):
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    jax = _jax_cpu()
+    import jax.numpy as jnp
+
+    from pips_ipmpp_tpu.core.options import Options as JOptions
+    from pips_ipmpp_tpu.io.synthetic import random_arrowhead_lp as jax_lp
+    from pips_ipmpp_tpu.ipm.solver import IPMSolver as JIPMSolver
+    from pips_ipmpp_tpu.linalg.arrow_backend import ArrowBackend as JArrow
+    from pips_ipmpp_tpu_torch.core.options import Options
+    from pips_ipmpp_tpu_torch.io.synthetic import random_arrowhead_lp
+    from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
+    from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+
+    torch.set_num_threads(1)
+    dims = dict(N=4, n=24, mE=10, mI=12, n0=6, m0E=3, m0I=3, mEl=3, mIl=3)
+    jsolver = JIPMSolver(partial(JArrow, factor_dtype=jnp.float32),
+                         JOptions())
+    solver = IPMSolver(partial(ArrowBackend, factor_dtype=torch.float32),
+                       Options(), device="cpu")
+
+    def triple(lp):
+        return [dataclasses.replace(lp, c0=lp.c0 * (1 + 1e-4 * i),
+                                    cN=lp.cN * (1 + 1e-4 * i))
+                for i in range(3)]
+    for seed in map(int, seeds):
+        for pkg, sv, make in (("jax", jsolver, jax_lp),
+                              ("port", solver, random_arrowhead_lp)):
+            lps = triple(make(seed, **dims))
+            singles = [sv.solve_fused(lp) for lp in lps]
+            _, info = sv.solve_fused_batch_async(lps)
+            info = {k: np.asarray(jax.device_get(info[k]))
+                    for k in ("iterations", "objective")}
+            print(json.dumps(dict(
+                seed=seed, package=pkg,
+                single_iterations=[s.iterations for s in singles],
+                batch_iterations=info["iterations"].tolist(),
+                single_objectives=[s.objective for s in singles],
+                batch_objectives=info["objective"].tolist())), flush=True)
 
 
 def _leaves(it):
@@ -606,6 +921,16 @@ if __name__ == "__main__":
         f3noise(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "replay":
         replay(*sys.argv[2:])
+    elif sys.argv[1] == "f32triple":
+        f32triple(*sys.argv[2:])
+    elif sys.argv[1] == "f32batch":
+        f32batch(*sys.argv[2:])
+    elif sys.argv[1] == "batchinput":
+        batchinput(*sys.argv[2:5])
+    elif sys.argv[1] == "batchnoise":
+        batchnoise(*sys.argv[2:5])
+    elif sys.argv[1] == "f3lapack":
+        f3lapack(*sys.argv[2:])
     elif sys.argv[1] == "f3":
         f3(sys.argv[2])
     elif sys.argv[1] == "golden":
