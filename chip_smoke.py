@@ -39,7 +39,20 @@ read just after (the ELL kernel's also per operator and width):
     an open fault that may miss it; none now), the root's f64 Cholesky
     through the potf2 kernel (LAPACK's order), which is also checked
     against its plain version at the root shapes, and launched by every
-    f64 reference solve above.
+    f64 reference solve above;
+  - the facade's whole pipeline at full size: the JAX package's 102k-
+    variable energy dispatch LP through presolve (the native scans
+    loaded, its stats the JAX package's), geometric + equilibrium
+    scaling, the solve and the primal postsolve, with f64 factors (potf2
+    at the root; objective within 1e-6 of HiGHS, A x - b below 1e-5) and
+    with the card's f32 factors (LDL kernel; within 1e-3 of the f64
+    objective), the primal gathers at 96 blocks and every gather (the
+    dual ones through the whole postsolve, its complementarity products
+    held to 1e-3) on the same LP cut to 12 blocks, and the LDL and potf2
+    kernels checked at its leaf and root shapes;
+  - the presolved GAMSsmall instances of
+    tests/test_golden_reference.py:62-110 (every gather, complementarity
+    held to 1e-3) and the DenseLP happy path through the facade.
 
 `paths()` defines the solves; `profile_port.py` profiles the same ones.
 
@@ -67,7 +80,8 @@ import torch
 from pips_ipmpp_tpu_torch import (Options, PIPSIPMppTorchInterface,
                                   TerminationStatus, _build)
 from pips_ipmpp_tpu_torch.core.lp import make_arrowhead_lp
-from pips_ipmpp_tpu_torch.core.options import ScalerType
+from pips_ipmpp_tpu_torch.core.options import PresolverType, ScalerType
+from pips_ipmpp_tpu_torch.interface import COMPLEMENTARITY_BOUND
 from pips_ipmpp_tpu_torch.io.synthetic import (random_arrowhead_lp,
                                                random_sparse_arrowhead_lp)
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
@@ -104,6 +118,41 @@ SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
 # path (300 > 237), which keeps its running sums in device memory
 POTF2_SHAPES = [(1, 64), (1, 128), (8, 64), (8, 128), (1, 16), (1, 14),
                 (1, 11), (1, 300)]
+# the JAX package's real-world configuration (bench.py:290-370,
+# tests/test_realworld.py:117-131): a 102k-variable energy dispatch LP
+# (96 blocks of 1062 columns, 150 + 550 rows, n0 = 550, 384 linking rows)
+# through the recommended pipeline (presolve, geometric + equilibrium
+# scaling) with the JAX bench's solver settings (bench.py:333-335); its
+# HiGHS f64 objective (scipy 1.17.0, io/energy.highs_oracle) and the JAX
+# package's presolve stats for it
+ENERGY = dict(T=96, R=150, G=550, L=350, S=4, seed=5)
+ENERGY_OPTIONS = dict(scaler=ScalerType.GEOMETRIC_MEAN_EQUILIBRIUM,
+                      presolve=PresolverType.PRESOLVE, max_iterations=300,
+                      max_gondzio_correctors=1, refinement_steps=2)
+ENERGY_ORACLE = 522861.86199339543
+ENERGY_PRESOLVE_STATS = dict(model_cleanup=15, singleton_rows=0,
+                             column_fixation=0, parallel_rows=0,
+                             nearly_parallel_rows=0, singleton_columns=96,
+                             bound_strengthening=1209)
+ENERGY_EQ_RESID = 1e-5      # tests/test_realworld.py:41
+# the dual gathers' postsolve (the JAX package's dual transfer, which
+# scores every candidate row over the whole LP) takes about ten minutes
+# at 96 blocks on the card machine's host (PERF.md §5): they run on the
+# same LP cut to 12 blocks (ROADMAP.md §3, F5)
+ENERGY_GATHER_T = 12
+# the gathers and the size of the original space each returns
+GATHERS = {
+    "gatherPrimalSolution": "vars", "gatherDualSolutionEq": "eq",
+    "gatherDualSolutionIneq": "ineq", "gatherEqualityConsValues": "eq",
+    "gatherInequalityConsValues": "ineq", "gatherSlacksVarsLow": "vars",
+    "gatherSlacksVarsUp": "vars", "gatherSlacksInequalityLow": "ineq",
+    "gatherSlacksInequalityUp": "ineq",
+    "gatherDualSolutionVarBoundsLow": "vars",
+    "gatherDualSolutionVarBoundsUpp": "vars",
+    "gatherDualSolutionVarBounds": "vars",
+    "gatherDualSolutionIneqLow": "ineq", "gatherDualSolutionIneqUpp": "ineq",
+    "gatherPrimalResidsEQ": "eq", "gatherPrimalResidsIneqLow": "ineq",
+    "gatherPrimalResidsIneqUp": "ineq", "gatherDualResids": "vars"}
 # the JAX package's reference-scale sparse acceptance instance
 # (tests/test_sparse.py:186-201) and its HiGHS f64 oracle objective
 SPARSE = dict(N=8, n=8192, mE=4096, mI=4096, nnz_per_row=10, n0=16, m0E=4,
@@ -311,7 +360,8 @@ def check_ldl_kernel(shapes=LDL_SHAPES, tag="ldl_check"):
     return rows
 
 
-def check_potf2_kernel():
+def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check",
+                       profile_plain=True):
     """The f64 root Cholesky kernel against its plain version on the card
     (the same dpotf2 order in torch operations) at the root shapes: the
     same factor to 1e-14 of its largest entry (the arithmetic is the same,
@@ -320,20 +370,38 @@ def check_potf2_kernel():
     `loop_ms` (CUDA events over 50 back-to-back calls) is the time the
     kernels line gives: the profiler's device time of a one-CTA kernel
     read 0.448 and 0.0448 ms at [1,128,128] in two runs on the same card,
-    while one call between CUDA events took 0.48 ms in both."""
+    while one call between CUDA events took 0.48 ms in both.  Without
+    `profile_plain` the plain version, thousands of small operations per
+    call at an edge of hundreds, is timed by its one checking call between
+    CUDA events (`plain_wall_ms`) and not profiled (`plain_ms` None)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     rows = []
-    for B, n in POTF2_SHAPES:
+    for B, n in shapes:
         A = ldl_input(B, n, n, gen)
         Lk, ik = potf2.potf2(A)
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         Lp, ip = potf2.cholesky_potf2_ref(A)
+        end.record()
+        end.synchronize()
         diff = float((Lk - Lp).abs().amax())
         scale = float(Lp.abs().amax())
         backward = float((Lk @ Lk.mT - A).abs().amax() / A.abs().amax())
-        times = timings(lambda: potf2.potf2(A),
-                        lambda: potf2.cholesky_potf2_ref(A),
-                        lambda: torch.linalg.cholesky_ex(A), 10, 1)
+        if profile_plain:
+            times = timings(lambda: potf2.potf2(A),
+                            lambda: potf2.cholesky_potf2_ref(A),
+                            lambda: torch.linalg.cholesky_ex(A), 10, 1)
+        else:
+            lib = lambda: torch.linalg.cholesky_ex(A)      # noqa: E731
+            times = dict(ms=device_ms(lambda: potf2.potf2(A), 10),
+                         wall_ms=cuda_ms(lambda: potf2.potf2(A), 10),
+                         plain_ms=None,
+                         plain_wall_ms=start.elapsed_time(end),
+                         library_ms=device_ms(lib, 10),
+                         library_wall_ms=cuda_ms(lib, 10),
+                         library_loop_ms=loop_ms(lib, 200))
         times["loop_ms"] = loop_ms(lambda: potf2.potf2(A), 50)
         # A in, L out (n^2 doubles each) and n^3/3 flops per matrix
         bound_ms, bound_by = bound(2 * B * n * n * 8 + B * 4,
@@ -342,7 +410,7 @@ def check_potf2_kernel():
                    rel_err=diff / scale, info_equal=bool(torch.equal(ik, ip)),
                    all_ok=bool((ik == 0).all()), backward_err=backward,
                    **times, bound_ms=bound_ms, bound_by=bound_by)
-        print("potf2_check", json.dumps(row), flush=True)
+        print(tag, json.dumps(row), flush=True)
         require(diff <= 1e-14 * scale and row["info_equal"]
                 and row["all_ok"],
                 f"potf2 kernel off its plain version at {[B, n, n]}: {row}")
@@ -1090,6 +1158,237 @@ def golden_phase():
                 open_faults={k: GOLDEN_OPEN[k] for k in failed})
 
 
+def gather_all(iface, lp) -> dict:
+    """Every gather accessor of a facade that ran: each must return a
+    finite array of its original-space size, and the complementarity
+    products of the gathered solution stay within the bound the facade
+    holds them to (COMPLEMENTARITY_BOUND, that of tests/test_interface.py).
+    Returns the accessors' seconds (the first pays the postsolve)."""
+    sizes = dict(vars=lp.total_vars(), eq=lp.total_eq(),
+                 ineq=lp.total_ineq())
+    secs = {}
+    for name, space in GATHERS.items():
+        t0 = time.perf_counter()
+        v = getattr(iface, name)()
+        secs[name] = time.perf_counter() - t0
+        require(v.shape == (sizes[space],) and bool(torch.isfinite(
+            torch.from_numpy(v)).all()),
+            f"{name}: shape {v.shape} (want {sizes[space]}) or not finite")
+    cols, eq, ineq = iface.allgatherBlocksizes()
+    require((int(cols.sum()), int(eq.sum()), int(ineq.sum()))
+            == (sizes["vars"], sizes["eq"], sizes["ineq"]),
+            "allgatherBlocksizes disagrees with the LP's sizes")
+    norms = iface.printComplementarityResiduals()
+    require(max(norms.values()) <= COMPLEMENTARITY_BOUND,
+            f"complementarity products {norms} above "
+            f"{COMPLEMENTARITY_BOUND:g}")
+    return secs
+
+
+def energy_lp(T):
+    """The energy LP with T blocks on the card in f64, built by the port's
+    own generator, and the seconds that took."""
+    from pips_ipmpp_tpu_torch.io import energy
+
+    t0 = time.perf_counter()
+    blocks, first, leq, liq, _ = energy.dispatch_blocks(**dict(ENERGY, T=T))
+    lp = make_arrowhead_lp(blocks, first, leq, liq, dtype=torch.float64,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    return lp, time.perf_counter() - t0
+
+
+def energy_run(lp, opts: Options, all_gathers=False):
+    """The facade's whole pipeline on an energy LP, then the primal
+    gathers (they replay the primal reductions alone) or, with
+    `all_gathers`, every gather."""
+    iface = PIPSIPMppTorchInterface(lp, opts, device=DEVICE)
+    status = iface.run()
+    solved = dict(status=status.name, iterations=iface.n_iterations,
+                  mu=iface.result.mu, residual=iface.result.residual_norm,
+                  phase_times=iface.phase_times)
+    print("energy_solved", json.dumps(solved), flush=True)
+    require(status == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"energy: {solved}")
+    t0 = time.perf_counter()
+    objective = iface.getObjective()
+    eq_resid = float(abs(iface.gatherPrimalResidsEQ()).max())
+    x = iface.gatherPrimalSolution()
+    require(x.shape == (lp.total_vars(),) and bool(torch.isfinite(
+        torch.from_numpy(x)).all()), f"energy: x of shape {x.shape}")
+    primal_gathers_s = time.perf_counter() - t0
+    gather_s = gather_all(iface, lp) if all_gathers else {}
+    return dict(status=status, iterations=iface.n_iterations,
+                objective=objective, eq_resid=eq_resid,
+                stats=iface._presolve_log.stats,
+                phase_times=dict(iface.phase_times),
+                primal_gathers_s=primal_gathers_s,
+                all_gathers_s=sum(gather_s.values()),
+                shapes=energy_shapes(iface._presolve_log.lp))
+
+
+def energy_shapes(lp) -> dict:
+    """The kernels' shapes on this LP, as the backend builds them: the
+    condensed leaves [N, mE + mI, mE + mI] (SPD) and the quasidefinite
+    root [1, n0 + nD, n0 + nD] with n0 positive pivots for the LDL
+    kernel; the two-level root's blocks S11 [n0, n0] and the dual Schur
+    complement [nD, nD] for potf2 (nD = m0E + m0I + mEl + mIl)."""
+    nD = lp.m0E + lp.m0I + lp.mEl + lp.mIl
+    return dict(ldl=[(lp.N, lp.mE + lp.mI, lp.mE + lp.mI),
+                     (1, lp.n0 + nD, lp.n0)],
+                potf2=[(1, lp.n0), (1, nD)])
+
+
+def energy_phase():
+    """The facade's full pipeline at full size: the energy LP through
+    presolve, geometric + equilibrium scaling, the solve and the
+    postsolve, then every gather, with f64 factors (held to the HiGHS
+    objective and the equality residual of tests/test_realworld.py) and
+    with the card's default f32 factors (held to the f64 objective)."""
+    from pips_ipmpp_tpu_torch import native
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    require(native.available(), f"native presolve library: "
+            f"{native.build_error}")
+    build_s = time.perf_counter() - t0
+    lp, gen_s = energy_lp(ENERGY["T"])
+    rows = {}
+    for name, extra, kernels in (
+            ("energy_f64", dict(factor_dtype="float64"), ["potf2_f64"]),
+            ("energy_f32", {}, ["ldl_inverse_f32"])):
+        t0 = time.perf_counter()
+        out, counts = drive(name, partial(energy_run, lp, Options(
+            **ENERGY_OPTIONS, **extra)), kernels)
+        out.pop("ell_launches_by")
+        row = dict(case=name, native_library=lib.name,
+                   native_build_s=build_s, generate_s=gen_s,
+                   total_s=time.perf_counter() - t0, launches=counts,
+                   **{k: v for k, v in out.items() if k != "status"},
+                   status=out["status"].name,
+                   oracle=ENERGY_ORACLE,
+                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+                   / abs(ENERGY_ORACLE))
+        rows[name] = row
+        print("energy", json.dumps(row), flush=True)
+        require(out["stats"] == ENERGY_PRESOLVE_STATS,
+                f"{name}: presolve stats {out['stats']} are not the JAX "
+                f"package's {ENERGY_PRESOLVE_STATS}")
+        if name == "energy_f64":
+            require(row["oracle_rel"] <= F64_ORACLE_RTOL,
+                    f"{name}: objective {out['objective']} off the HiGHS "
+                    f"objective by {row['oracle_rel']:.3e} relative")
+            require(out["eq_resid"] < ENERGY_EQ_RESID,
+                    f"{name}: max |A x - b| = {out['eq_resid']:.3e}")
+        else:
+            f64 = rows["energy_f64"]["objective"]
+            rel = abs(out["objective"] - f64) / abs(f64)
+            row["f64_rel"] = rel
+            require(rel <= OBJ_RTOL, f"{name}: objective {out['objective']} "
+                    f"off the f64 objective {f64} by {rel:.3e}")
+    # every gather, the dual ones through the whole postsolve, on the same
+    # LP cut to ENERGY_GATHER_T blocks (full width), f64 factors
+    del lp
+    torch.cuda.empty_cache()
+    small, _ = energy_lp(ENERGY_GATHER_T)
+    t0 = time.perf_counter()
+    out, counts = drive("energy_gathers", partial(
+        energy_run, small, Options(**ENERGY_OPTIONS,
+                                   factor_dtype="float64"),
+        all_gathers=True), ["potf2_f64"])
+    row = dict(case="energy_gathers", T=ENERGY_GATHER_T,
+               total_s=time.perf_counter() - t0, launches=counts,
+               status=out["status"].name, iterations=out["iterations"],
+               objective=out["objective"], eq_resid=out["eq_resid"],
+               stats=out["stats"], phase_times=out["phase_times"],
+               primal_gathers_s=out["primal_gathers_s"],
+               all_gathers_s=out["all_gathers_s"])
+    rows["energy_gathers"] = row
+    print("energy", json.dumps(row), flush=True)
+    require(out["eq_resid"] < ENERGY_EQ_RESID,
+            f"energy_gathers: max |A x - b| = {out['eq_resid']:.3e}")
+    return rows
+
+
+# the golden instances that tests/test_golden_reference.py:62-76 runs
+# through the facade with presolve and geometric + equilibrium scaling
+GOLDEN_PIPELINE = ("exampleAC_boundStrength", "hier_approach_8blocks_2by3",
+                   "nearlyParallelInequalityRows_B0A2")
+
+
+def golden_presolved_phase():
+    """The GAMSsmall instances of tests/test_golden_reference.py:62-76
+    (presolve, geometric + equilibrium scaling) and :93-110 (the
+    singletonInequalityColumn ones, presolve, a singleton-column reduction
+    firing) through the facade on the card, in f64 factors as those tests
+    run on the CPU, each to the manifest's objective (1e-4)."""
+    from pips_ipmpp_tpu_torch.io.blockfile import read_blocks
+
+    data = Path(__file__).resolve().parent / "tests" / "data" / "gamssmall"
+    manifest = {e["name"]: e for e in
+                json.loads((data / "manifest.json").read_text())}
+    cases = [(n, ScalerType.GEOMETRIC_MEAN_EQUILIBRIUM)
+             for n in GOLDEN_PIPELINE]
+    cases += [(n, ScalerType.NONE) for n in manifest
+              if "singletonInequalityColumn" in n]
+    rows = []
+    for name, scaler in cases:
+        e = manifest[name]
+        lp = read_blocks(str(data / name), n_blocks=e["n_files"],
+                         device=DEVICE)
+        iface = PIPSIPMppTorchInterface(lp, Options(
+            scaler=scaler, presolve=PresolverType.PRESOLVE,
+            factor_dtype="float64"), device=DEVICE)
+        status = iface.run()
+        row = dict(name=name, scaler=scaler.name, status=status.name,
+                   iterations=iface.n_iterations,
+                   objective=iface.getObjective(),
+                   recorded_objective=e["objective"],
+                   stats=iface._presolve_log.stats)
+        print("golden_presolved", json.dumps(row), flush=True)
+        require(status == TerminationStatus.SUCCESSFUL_TERMINATION
+                and abs(row["objective"] - e["objective"]) < 1e-4,
+                f"{name}: misses the manifest's objective {row}")
+        if "singletonInequalityColumn" in name:
+            require(row["stats"].get("singleton_columns", 0) > 0,
+                    f"{name}: no singleton-column reduction fired")
+        gather_all(iface, lp)
+        rows.append(row)
+    return rows
+
+
+def dense_lp_phase():
+    """The DenseLP happy path of the verification recipe on the card
+    (DenseBackend, torch.linalg's Cholesky): x* = (0.5, 1), objective
+    -2.5, with the card's default f32 factors and with f64."""
+    import numpy as np
+
+    from pips_ipmpp_tpu_torch import DenseLP
+
+    def f(v):
+        return torch.as_tensor(np.asarray(v, np.float64), device=DEVICE)
+
+    lp = DenseLP(c=f([-1.0, -2.0]), A=f([[1.0, 1.0]]), b=f([1.5]),
+                 C=f(np.zeros((0, 2))), iclow=f([]), clow=f([]),
+                 icupp=f([]), cupp=f([]), ixlow=f([1, 1]), xlow=f([0, 0]),
+                 ixupp=f([1, 1]), xupp=f([1, 1]))
+    rows = []
+    for extra in ({}, dict(factor_dtype="float64")):
+        iface = PIPSIPMppTorchInterface(lp, Options(**extra), device=DEVICE)
+        status = iface.run()
+        x = iface.gatherPrimalSolution()
+        row = dict(options=extra, backend=iface.backend_class.__name__,
+                   status=status.name, iterations=iface.n_iterations,
+                   objective=iface.getObjective(), x=x.tolist())
+        print("dense_lp", json.dumps(row), flush=True)
+        require(status == TerminationStatus.SUCCESSFUL_TERMINATION
+                and abs(row["objective"] + 2.5) < 1e-6
+                and float(abs(x - np.array([0.5, 1.0])).max()) < 1e-6,
+                f"DenseLP happy path: {row}")
+        rows.append(row)
+    return rows
+
+
 def dense_path(name, f32_run, f64_run, n_vars, kernel):
     """The f64 reference (no kernel launch allowed but the f64 root
     Cholesky's), then the f32 path."""
@@ -1232,7 +1531,27 @@ def main():
             f"({golden['launches']}, captured {golden['captured_launches']})")
     add(golden["launches"])
 
-    # ---- 11. the kernels line ----
+    # ---- 11. the facade's full pipeline at full size: the energy LP
+    #          through presolve, scaling, the solve (f64 factors: potf2
+    #          at the root; f32: the LDL kernel) and the postsolve ----
+    energy = energy_phase()
+    for row in energy.values():
+        add(row["launches"])
+    shapes = energy["energy_f32"]["shapes"]
+    ldl_rows += check_ldl_kernel([(B, a, p) for B, a, p in shapes["ldl"]],
+                                 "ldl_energy_check")
+    potf2_rows += check_potf2_kernel(
+        [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
+        "potf2_energy_check", profile_plain=False)
+
+    # ---- 12. the golden instances through the facade with presolve,
+    #          and the DenseLP happy path ----
+    reset_counts()
+    golden_presolved_phase()
+    dense_lp_phase()
+    add(read_counts())
+
+    # ---- 13. the kernels line ----
     leaf = ldl_rows[0]
     ell = next(r for r in ell_rows if r["case"] == "fwd"
                and r["dtype"] == "float32" and r["c"] > 1)

@@ -22,15 +22,16 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def lp_from_numpy(fields: dict[str, np.ndarray], *, device,
-                  dtype) -> ArrowheadLP:
-    """ArrowheadLP from a dict holding one array per field."""
-    names = [f.name for f in dataclasses.fields(ArrowheadLP)]
+def lp_from_numpy(fields: dict[str, np.ndarray], *, device, dtype,
+                  cls=ArrowheadLP):
+    """An ArrowheadLP (or a `cls` LP, a DenseLP) from a dict holding one
+    array per field."""
+    names = [f.name for f in dataclasses.fields(cls)]
     missing = set(names) - set(fields)
     if missing:
-        raise ValueError(f"missing ArrowheadLP fields: {sorted(missing)}")
-    return ArrowheadLP(**{k: _tensor(fields[k], device, dtype)
-                          for k in names})
+        raise ValueError(f"missing {cls.__name__} fields: "
+                         f"{sorted(missing)}")
+    return cls(**{k: _tensor(fields[k], device, dtype) for k in names})
 
 
 def lps_from_numpy(batch: list[dict[str, np.ndarray]], *, device,

@@ -42,8 +42,7 @@ def _maxabs(t: torch.Tensor, nb: int = 0) -> torch.Tensor:
 
 @dataclass
 class DenseLP:
-    """Flat (unstructured) LP.  Container only in this package: no backend
-    solves it yet."""
+    """Flat (unstructured) LP, solved by `linalg/dense_backend.py`."""
 
     c: torch.Tensor        # [n]
     A: torch.Tensor        # [mE, n] equality matrix
@@ -58,11 +57,29 @@ class DenseLP:
     ixupp: torch.Tensor    # [n]
     xupp: torch.Tensor     # [n]
 
+    @property
+    def mE(self) -> int:
+        return self.b.shape[-1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.c.dtype
+
     def astype(self, dtype) -> "DenseLP":
         return _map_fields(self, lambda t: t.to(dtype))
 
     def to(self, device) -> "DenseLP":
         return _map_fields(self, lambda t: t.to(device))
+
+    def objective(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.dot(self.c, x)
+
+    def datanorm(self) -> torch.Tensor:
+        """inf-norm over all problem data (reference Problem::datanorm)."""
+        leaves = [self.c, self.A, self.b, self.C,
+                  self.clow * self.iclow, self.cupp * self.icupp,
+                  self.xlow * self.ixlow, self.xupp * self.ixupp]
+        return torch.stack([_maxabs(t) for t in leaves]).amax()
 
 
 @dataclass

@@ -85,11 +85,12 @@ def _space_leaves(tree):
 
 def batch_ndim(tree) -> int:
     """The number of leading batch axes of a tree of space vectors: 0 for
-    a single LP, 1 for a stack of LPs."""
+    a single LP, 1 for a stack of LPs; 0 for a tree of plain tensors (a
+    DenseLP's vectors)."""
     for x in _space_leaves(tree):
         if _is_space(x):
             return x.first.ndim - 1
-    raise ValueError("the tree holds no space vector")
+    return 0
 
 
 def bcast(s, like):

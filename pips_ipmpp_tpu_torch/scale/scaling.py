@@ -1,9 +1,10 @@
-r"""Problem scaling: equilibrium (inf-norm) scaling of an arrowhead LP.
+r"""Problem scaling: geometric-mean, equilibrium (inf-norm), Curtis-Reid.
 
-Counterpart of the equilibrium part of `pips_ipmpp_tpu/scale/scaling.py`
-(reference Core/Preprocessing/Scaler.cpp, EquilibriumScaler), for the
+Counterpart of `pips_ipmpp_tpu/scale/scaling.py` (reference
+Core/Preprocessing/Scaler.cpp, GeometricMeanScaler.C:21-171,
+EquilibriumScaler, CurtisReidScaler.cpp:318) for the flat DenseLP, the
 batched-dense ArrowheadLP and the ELL SparseArrowheadLP.  Scaling runs
-once at setup, off the IPM hot path, on the batched arrowhead tensors.
+once at setup, off the IPM hot path, on the LP's tensors.
 
 Transform (col scale s > 0, eq-row scale rE > 0, ineq-row scale rC > 0):
 
@@ -20,10 +21,10 @@ import dataclasses
 
 import torch
 
-from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP
+from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, DenseLP
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
-from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec, tmap
+from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec, leaves, tmap
 
 _INF = float("inf")
 
@@ -76,6 +77,48 @@ def _red(op):
 def _agg0(st, op):
     """Reduce a batched statistic over its block axis."""
     return st.amax(0) if op == "max" else st.amin(0)
+
+
+class _DenseView:
+    """Stats/apply adapter for DenseLP."""
+
+    def __init__(self, lp: DenseLP):
+        self.lp = lp
+
+    def ones(self):
+        lp = self.lp
+        one = torch.ones_like
+        return one(lp.c), one(lp.b), one(lp.clow)
+
+    def row_stats(self, s, rE, rC, op):
+        lp = self.lp
+        SA = lp.A.abs() * rE[:, None] * s[None, :]
+        SC = lp.C.abs() * rC[:, None] * s[None, :]
+        return _rstat(SA, op), _rstat(SC, op)
+
+    def col_stats(self, s, rE, rC, op):
+        lp = self.lp
+        SA = lp.A.abs() * rE[:, None] * s[None, :]
+        SC = lp.C.abs() * rC[:, None] * s[None, :]
+        if op == "max":
+            return torch.maximum(_cstat(SA, "max"), _cstat(SC, "max"))
+        # min over the FULL column (A and C parts share variables):
+        # floor from the combined column max
+        fl = _MIN_REL_FLOOR * torch.maximum(_cstat(SA, "max"),
+                                            _cstat(SC, "max"))
+        return torch.minimum(_cstat(SA, "min", fl), _cstat(SC, "min", fl))
+
+    def apply(self, s, rE, rC) -> DenseLP:
+        lp = self.lp
+        return DenseLP(
+            c=lp.c * s,
+            A=lp.A * rE[:, None] * s[None, :], b=lp.b * rE,
+            C=lp.C * rC[:, None] * s[None, :],
+            iclow=lp.iclow, clow=lp.clow * rC,
+            icupp=lp.icupp, cupp=lp.cupp * rC,
+            ixlow=lp.ixlow, xlow=lp.xlow / s,
+            ixupp=lp.ixupp, xupp=lp.xupp / s,
+        )
 
 
 class _ArrowView:
@@ -364,11 +407,14 @@ class _SparseEllView(_ArrowView):
 
 
 def _view(lp):
+    if isinstance(lp, DenseLP):
+        return _DenseView(lp)
     if isinstance(lp, ArrowheadLP):
         return _ArrowView(lp)
     if isinstance(lp, SparseArrowheadLP):
         return _SparseEllView(lp)
-    raise TypeError(f"scaling supports ArrowheadLP and SparseArrowheadLP, "
+    raise TypeError(f"scaling supports DenseLP, ArrowheadLP and "
+                    f"SparseArrowheadLP, "
                     f"got {type(lp).__name__}")
 
 
@@ -407,30 +453,219 @@ class _ScalerBase:
         return tmap(lambda sv, v: v / sv, self.s, g)
 
 
+def _inv(f, m):
+    return torch.where(m > 0, f / torch.clamp_min(m, 1e-300), f)
+
+
 class EquilibriumScaler(_ScalerBase):
     """inf-norm scaling: rows by 1/rowmax, then cols by 1/colmax
     (reference EquilibriumScaler)."""
 
     def _compute(self, view):
         s, rE, rC = view.ones()
-
-        def inv(f, m):
-            return torch.where(m > 0, f / torch.clamp_min(m, 1e-300), f)
-
         mE, mC = view.row_stats(s, rE, rC, "max")
-        rE = tmap(inv, rE, mE)
-        rC = tmap(inv, rC, mC)
+        rE = tmap(_inv, rE, mE)
+        rC = tmap(_inv, rC, mC)
         cm = view.col_stats(s, rE, rC, "max")
-        s = tmap(inv, s, cm)
+        s = tmap(_inv, s, cm)
         return s, rE, rC
+
+
+class GeometricMeanScaler(_ScalerBase):
+    """sqrt(max*min) scaling iterated (reference GeometricMeanScaler.C:21-171),
+    optionally followed by an equilibrium pass."""
+
+    def __init__(self, max_iters: int = 10, with_equilibrium: bool = False):
+        super().__init__()
+        self.max_iters = max_iters
+        self.with_equilibrium = with_equilibrium
+
+    def _compute(self, view):
+        s, rE, rC = view.ones()
+
+        def geo(mx, mn):
+            # empty rows/cols stay unscaled
+            return torch.where(
+                mx > 0,
+                1.0 / torch.sqrt(torch.clamp_min(
+                    mx * torch.where(torch.isfinite(mn), mn, mx), 1e-300)),
+                1.0)
+
+        def step(f, mx, mn):
+            return f * _safe(geo(mx, mn))
+
+        for _ in range(self.max_iters):
+            mxE, mxC = view.row_stats(s, rE, rC, "max")
+            mnE, mnC = view.row_stats(s, rE, rC, "min")
+            rE = tmap(step, rE, mxE, mnE)
+            rC = tmap(step, rC, mxC, mnC)
+            cmx = view.col_stats(s, rE, rC, "max")
+            cmn = view.col_stats(s, rE, rC, "min")
+            s = tmap(step, s, cmx, cmn)
+        if self.with_equilibrium:
+            mxE, mxC = view.row_stats(s, rE, rC, "max")
+            rE = tmap(_inv, rE, mxE)
+            rC = tmap(_inv, rC, mxC)
+            cm = view.col_stats(s, rE, rC, "max")
+            s = tmap(_inv, s, cm)
+        return s, rE, rC
+
+
+class CurtisReidScaler(_ScalerBase):
+    """Curtis-Reid least-squares scaling: minimize
+    sum_{a_ij != 0} (log2|a_ij| + rho_i + gamma_j)^2 via CG on the normal
+    equations over log2 factors (reference CurtisReidScaler.cpp:318).
+    Sparse (ELL) LPs raise, as in the JAX package."""
+
+    def __init__(self, cg_iters: int = 30):
+        super().__init__()
+        self.cg_iters = cg_iters
+
+    def _compute(self, view):
+        CLAMP = 30.0   # factors within 2^+-30
+
+        def f(v):
+            return torch.ldexp(torch.ones_like(v), torch.clamp(
+                torch.round(v), -CLAMP, CLAMP).to(torch.int32))
+
+        gamma, rhoE, rhoC = self.log2_factors(view)
+        return tmap(f, gamma), tmap(f, rhoE), tmap(f, rhoC)
+
+    def log2_factors(self, view):
+        """The log2 column and row factors (gamma, rhoE, rhoC) before
+        rounding.  K is singular along the shift of every row by +c and
+        every column by -c, and in floating point the right-hand side is
+        not quite orthogonal to it, so the CG drifts along that shift by
+        an amount that turns on rounding (ROADMAP.md, F6): rho_i + gamma_j
+        is the solution, the split between them is not."""
+        if isinstance(view, _SparseEllView):
+            raise NotImplementedError(
+                "Curtis-Reid scaling is not implemented for ELL sparse "
+                "problems; use EQUILIBRIUM or GEOMETRIC_MEAN")
+        lp = view.lp
+
+        def logabs(M):
+            m = M.abs()
+            return (torch.where(m > 0, torch.log2(torch.clamp_min(m, 1e-300)),
+                                0.0),
+                    (m > 0).to(M.dtype))
+
+        if isinstance(view, _DenseView):
+            LA, PA = logabs(lp.A)
+            LC, PC = logabs(lp.C)
+            sigmaE, sigmaC = LA.sum(-1), LC.sum(-1)
+            sigmacol = LA.sum(-2) + LC.sum(-2)
+            cntE, cntC = PA.sum(-1), PC.sum(-1)
+            cntcol = PA.sum(-2) + PC.sum(-2)
+
+            def Pg(g):           # pattern @ gamma -> rows
+                return PA @ g, PC @ g
+
+            def PTr(rE_, rC_):   # pattern' @ rho -> cols
+                return PA.T @ rE_ + PC.T @ rC_
+        else:
+            LB, PB = {}, {}
+            for name in ("A0", "C0", "A", "B", "C", "D", "F0", "F",
+                         "G0", "G"):
+                LB[name], PB[name] = logabs(getattr(lp, name))
+
+            def rows_of(p0, pb, pd, pl0, plb):
+                return RVec(p0.sum(-1), pb.sum(-1) + pd.sum(-1),
+                            pl0.sum(-1) + plb.sum((0, 2)))
+
+            sigmaE = rows_of(LB["A0"], LB["A"], LB["B"], LB["F0"], LB["F"])
+            sigmaC = rows_of(LB["C0"], LB["C"], LB["D"], LB["G0"], LB["G"])
+            cntE = rows_of(PB["A0"], PB["A"], PB["B"], PB["F0"], PB["F"])
+            cntC = rows_of(PB["C0"], PB["C"], PB["D"], PB["G0"], PB["G"])
+
+            def cols_of(t):
+                first = (t["A0"].sum(0) + t["C0"].sum(0)
+                         + t["F0"].sum(0) + t["G0"].sum(0)
+                         + t["A"].sum((0, 1)) + t["C"].sum((0, 1)))
+                blocks = (t["B"].sum(1) + t["D"].sum(1)
+                          + t["F"].sum(1) + t["G"].sum(1))
+                return XVec(first, blocks)
+
+            sigmacol = cols_of(LB)
+            cntcol = cols_of(PB)
+
+            def Pg(g: XVec):
+                first = PB["A0"] @ g.first
+                blocks = (torch.einsum("imk,k->im", PB["A"], g.first)
+                          + torch.einsum("imn,in->im", PB["B"], g.blocks))
+                link = PB["F0"] @ g.first + torch.einsum(
+                    "iln,in->l", PB["F"], g.blocks)
+                firstC = PB["C0"] @ g.first
+                blocksC = (torch.einsum("imk,k->im", PB["C"], g.first)
+                           + torch.einsum("imn,in->im", PB["D"], g.blocks))
+                linkC = PB["G0"] @ g.first + torch.einsum(
+                    "iln,in->l", PB["G"], g.blocks)
+                return RVec(first, blocks, link), RVec(firstC, blocksC, linkC)
+
+            def PTr(rE_: RVec, rC_: RVec):
+                first = (PB["A0"].T @ rE_.first + PB["C0"].T @ rC_.first
+                         + PB["F0"].T @ rE_.link + PB["G0"].T @ rC_.link
+                         + torch.einsum("imk,im->k", PB["A"], rE_.blocks)
+                         + torch.einsum("imk,im->k", PB["C"], rC_.blocks))
+                blocks = (torch.einsum("imn,im->in", PB["B"], rE_.blocks)
+                          + torch.einsum("imn,im->in", PB["D"], rC_.blocks)
+                          + torch.einsum("iln,l->in", PB["F"], rE_.link)
+                          + torch.einsum("iln,l->in", PB["G"], rC_.link))
+                return XVec(first, blocks)
+
+        # CG on K u = rhs, u = (rhoE, rhoC, gamma),
+        # K = [[diag(cnt_rows), P], [P', diag(cnt_cols)]]
+        rhs = (tmap(torch.neg, sigmaE), tmap(torch.neg, sigmaC),
+               tmap(torch.neg, sigmacol))
+
+        def Kmul(u):
+            uE, uC, g = u
+            PgE, PgC = Pg(g)
+            outE = tmap(lambda c, r, p: c * r + p, cntE, uE, PgE)
+            outC = tmap(lambda c, r, p: c * r + p, cntC, uC, PgC)
+            outg = tmap(lambda c, gg, p: c * gg + p, cntcol, g, PTr(uE, uC))
+            return outE, outC, outg
+
+        def dot(a, b):
+            return sum(torch.dot(x.reshape(-1), y.reshape(-1))
+                       for x, y in zip(leaves(a), leaves(b)))
+
+        # K is positive SEMI-definite (the constant row-shift/col-shift
+        # direction is a null space), so CG iterates can drift along null
+        # directions once rounding mixes them in: keep the iterate with
+        # the BEST residual, and clamp the final log2 factors
+        u = tmap(torch.zeros_like, rhs)
+        r = rhs
+        p = r
+        rs = dot(r, r)
+        best_u, best_rs = u, rs
+        for _ in range(self.cg_iters):
+            Kp = Kmul(p)
+            denom = dot(p, Kp)
+            alpha = torch.where(denom > 0,
+                                rs / torch.clamp_min(denom, 1e-300), 0.0)
+            u = tmap(lambda uu, pp: uu + alpha * pp, u, p)
+            r = tmap(lambda rr, kp: rr - alpha * kp, r, Kp)
+            rs_new = dot(r, r)
+            improved = rs_new < best_rs
+            best_u = tmap(lambda b, c: torch.where(improved, c, b),
+                          best_u, u)
+            best_rs = torch.where(improved, rs_new, best_rs)
+            beta = rs_new / torch.clamp_min(rs, 1e-300)
+            p = tmap(lambda rr, pp: rr + beta * pp, r, p)
+            rs = rs_new
+
+        rhoE, rhoC, gamma = best_u
+        return gamma, rhoE, rhoC
 
 
 def make_scaler(kind: ScalerType) -> _ScalerBase:
     if kind == ScalerType.EQUILIBRIUM:
         return EquilibriumScaler()
-    if kind in (ScalerType.GEOMETRIC_MEAN,
-                ScalerType.GEOMETRIC_MEAN_EQUILIBRIUM,
-                ScalerType.CURTIS_REID):
-        raise NotImplementedError(
-            f"{kind.name} scaling is not ported yet; use EQUILIBRIUM")
+    if kind == ScalerType.GEOMETRIC_MEAN:
+        return GeometricMeanScaler()
+    if kind == ScalerType.GEOMETRIC_MEAN_EQUILIBRIUM:
+        return GeometricMeanScaler(with_equilibrium=True)
+    if kind == ScalerType.CURTIS_REID:
+        return CurtisReidScaler()
     raise ValueError(f"no scaler for {kind}")

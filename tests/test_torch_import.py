@@ -24,7 +24,15 @@ def test_import_leaves_jax_out():
             "          'pips_ipmpp_tpu_torch.linalg.sparse_backend',\n"
             "          'pips_ipmpp_tpu_torch.ipm.control',\n"
             "          'pips_ipmpp_tpu_torch.ipm.device_loop',\n"
-            "          'pips_ipmpp_tpu_torch.io.blockfile'}\n"
+            "          'pips_ipmpp_tpu_torch.io.blockfile',\n"
+            "          'pips_ipmpp_tpu_torch.io.energy',\n"
+            "          'pips_ipmpp_tpu_torch.native',\n"
+            "          'pips_ipmpp_tpu_torch.presolve.data',\n"
+            "          'pips_ipmpp_tpu_torch.presolve.vectorized',\n"
+            "          'pips_ipmpp_tpu_torch.presolve.passes',\n"
+            "          'pips_ipmpp_tpu_torch.presolve.postsolve',\n"
+            "          'pips_ipmpp_tpu_torch.presolve.presolver',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.dense_backend'}\n"
             "assert needed <= set(names), needed - set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pips_ipmpp_tpu' or "

@@ -120,9 +120,8 @@ def test_facade_rejects_unported_input():
         PIPSIPMppTorchInterface(lp, Options(hierarchical=True),
                                 device="cpu")
     with pytest.raises(NotImplementedError):
-        PIPSIPMppTorchInterface(
-            lp, Options(scaler=ScalerType.GEOMETRIC_MEAN),
-            device="cpu").run()
+        PIPSIPMppTorchInterface(lp, Options(outer_bicgstab=True),
+                                device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card: nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):

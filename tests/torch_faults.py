@@ -14,6 +14,7 @@ against the JAX package), on the CPU unless an entry says the card.
     PYTHONPATH=. python tests/torch_faults.py f32batch {jax,small} SEEDS...
     PYTHONPATH=. python tests/torch_faults.py f32triple SEEDS...
     PYTHONPATH=. python tests/torch_faults.py f2cg N K TRIPS...
+    PYTHONPATH=. python tests/torch_faults.py f6cr [SEEDS...]
 
 f1: the f32 sweep solve of the two-scenario linking LP
 (`tests/fixtures.py::two_scenario_linking_lp`, `ArrowBackend(factor_dtype
@@ -127,6 +128,14 @@ golden: one GAMSsmall instance in f64 through the host loop of the port
 package found under ROOT (this checkout, or another one unpacked beside
 it, such as a parent commit without `io/blockfile.py`) on DEVICE (cpu or
 cuda): status, iterations, objective and the first mu values (F3).
+
+f6cr: Curtis-Reid scaling in both packages (F6) on the dense LPs
+`random_dense_lp(PRNGKey(k), n=16, mE=5, mI=7)` and `(n=24, mE=7, mI=9)`
+and the arrowhead LPs `random_arrowhead_lp(k, N=4, n=6, mE=2, mI=3, n0=3,
+m0E=1, m0I=2, mEl=2, mIl=2)`, k in SEEDS (default 0-5).  One JSON line
+each: the number of the rounded factors s, rE, rC that differ; for the
+dense LPs also the largest difference of the log2 row factors before
+rounding and of rho_i + gamma_j over the nonzeros a_ij.
 """
 import json
 import sys
@@ -910,6 +919,70 @@ def golden(root, name, device):
                           mu=[h.mu for h in r.history[:8]])))
 
 
+def f6cr(*seeds):
+    jax = _jax_cpu()
+    import jax.numpy as jnp
+    import torch
+
+    from pips_ipmpp_tpu.core.options import ScalerType as JScalerType
+    from pips_ipmpp_tpu.io.synthetic import random_arrowhead_lp
+    from pips_ipmpp_tpu.linalg.dense_backend import random_dense_lp
+    from pips_ipmpp_tpu.scale import scaling as jsc
+    from pips_ipmpp_tpu_torch import DenseLP, bridge
+    from pips_ipmpp_tpu_torch.core.options import ScalerType
+    from pips_ipmpp_tpu_torch.scale import scaling as tsc
+    from torch_parity import jax_fields, np_tree
+
+    def leaves(t):
+        if isinstance(t, dict):
+            return [x for k in sorted(t) for x in leaves(t[k])]
+        return [np.asarray(t)]
+
+    def port(jlp):
+        cls = DenseLP if hasattr(jlp, "A") and not hasattr(jlp, "N") \
+            else None
+        kw = dict(cls=cls) if cls else {}
+        return bridge.lp_from_numpy(jax_fields(jlp), device="cpu",
+                                    dtype=torch.float64, **kw)
+
+    cases = []
+    for k in [int(a) for a in seeds] or range(6):
+        cases += [("dense", k, dict(n=16, mE=5, mI=7)),
+                  ("dense", k, dict(n=24, mE=7, mI=9)),
+                  ("arrow", k, dict(N=4, n=6, mE=2, mI=3, n0=3, m0E=1,
+                                    m0I=2, mEl=2, mIl=2))]
+    for kind, k, shape in cases:
+        jlp = (random_dense_lp(jax.random.PRNGKey(k), **shape)
+               if kind == "dense" else random_arrowhead_lp(k, **shape))
+        tlp = port(jlp)
+        js = jsc.make_scaler(JScalerType.CURTIS_REID)
+        ts = tsc.make_scaler(ScalerType.CURTIS_REID)
+        js.scale(jlp)
+        ts.scale(tlp)
+        row = dict(view=kind, seed=k, shape=shape, factors_differ=sum(
+            int((a != b).sum()) for name in ("s", "rE", "rC")
+            for a, b in zip(leaves(np_tree(getattr(js, name))),
+                            leaves(np_tree(getattr(ts, name))))))
+        if kind == "dense":
+            seen, round_ = [], jnp.round
+            jnp.round = lambda v, *a, **kw: (seen.append(np.asarray(v)),
+                                             round_(v, *a, **kw))[1]
+            try:
+                js._compute(jsc._view(jlp))
+            finally:
+                jnp.round = round_
+            rho_j, gamma_j = np.concatenate(seen[:2]), seen[2]
+            gamma, rhoE, rhoC = ts.log2_factors(tsc._view(tlp))
+            rho_t = torch.cat([rhoE, rhoC]).numpy()
+            nz = np.concatenate([np.asarray(jlp.A), np.asarray(jlp.C)]) != 0
+            row.update(
+                log2_row_shift=float(np.abs(rho_t - rho_j).max()),
+                log2_sum_diff=float(np.abs(
+                    (rho_t[:, None] + gamma.numpy()[None, :])
+                    - (rho_j[:, None] + gamma_j[None, :]))[nz].max()))
+        print(json.dumps(row), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "f1":
         f1(sys.argv[2])
@@ -935,6 +1008,8 @@ if __name__ == "__main__":
         f3(sys.argv[2])
     elif sys.argv[1] == "golden":
         golden(*sys.argv[2:5])
+    elif sys.argv[1] == "f6cr":
+        f6cr(*sys.argv[2:])
     else:
         f2(int(sys.argv[2]), sys.argv[3], *map(float, sys.argv[4:5]),
            *map(int, sys.argv[5:6]))
