@@ -37,8 +37,8 @@ read just after (the ELL kernel's also per operator and width):
     fused solve captured and held to its host loop, both loops to
     PIPS-IPM++'s recorded acceptance (`GOLDEN_OPEN` names the instances of
     an open fault that may miss it; none now), the root's f64 Cholesky
-    through the potf2 kernel (LAPACK's order), which is also checked
-    against its plain version at the root shapes, and launched by every
+    through the potf2 kernel (LAPACK's order), which is also held bit for
+    bit to its plain version at the root shapes, and launched by every
     f64 reference solve above;
   - the facade's whole pipeline at full size: the JAX package's 102k-
     variable energy dispatch LP through presolve (the native scans
@@ -114,10 +114,13 @@ SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
 # dual Schur complement) that the potf2 kernel factors: the flagship's and
 # the big leaf's (n0 = 64, nD = 128), the same at the batch of 8, the
 # 8 x 8192 sparse instance's (16, 16), the two golden instances of F3
-# (dual blocks of 14 and 11), and one edge past the kernel's shared-memory
-# path (300 > 237), which keeps its running sums in device memory
+# (dual blocks of 14 and 11), and edges that straddle the kernel's
+# 32-column panels: nb + 1, 2 nb + 3, 193 at a batch of 2, and 300
 POTF2_SHAPES = [(1, 64), (1, 128), (8, 64), (8, 128), (1, 16), (1, 14),
-                (1, 11), (1, 300)]
+                (1, 11), (1, 33), (1, 67), (2, 193), (1, 300)]
+# the plain potf2 version is profiled up to this edge; above it, thousands
+# of small operations per call, it is timed by its one checking call
+POTF2_PROFILE_PLAIN_MAX = 128
 # the JAX package's real-world configuration (bench.py:290-370,
 # tests/test_realworld.py:117-131): a 102k-variable energy dispatch LP
 # (96 blocks of 1062 columns, 150 + 550 rows, n0 = 550, 384 linking rows)
@@ -360,20 +363,20 @@ def check_ldl_kernel(shapes=LDL_SHAPES, tag="ldl_check"):
     return rows
 
 
-def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check",
-                       profile_plain=True):
+def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check"):
     """The f64 root Cholesky kernel against its plain version on the card
     (the same dpotf2 order in torch operations) at the root shapes: the
-    same factor to 1e-14 of its largest entry (the arithmetic is the same,
-    so the two are expected to agree exactly: `exact` says whether they
-    do), the same health flags, and the factor's backward error.  Its
-    `loop_ms` (CUDA events over 50 back-to-back calls) is the time the
-    kernels line gives: the profiler's device time of a one-CTA kernel
-    read 0.448 and 0.0448 ms at [1,128,128] in two runs on the same card,
-    while one call between CUDA events took 0.48 ms in both.  Without
-    `profile_plain` the plain version, thousands of small operations per
-    call at an edge of hundreds, is timed by its one checking call between
-    CUDA events (`plain_wall_ms`) and not profiled (`plain_ms` None)."""
+    factor must equal the plain version's bit for bit (`torch.equal`),
+    with the same info (F3 is a fault of the order of roundings, so
+    nothing less than equality holds the order), and every pivot must
+    pass; the factor's backward error is reported.  Its `loop_ms` (CUDA
+    events over 50 back-to-back calls) is the time the kernels line gives:
+    the profiler's device time of the earlier one-CTA kernel read 0.448
+    and 0.0448 ms at [1,128,128] in two runs on the same card, while one
+    call between CUDA events took 0.48 ms in both.  Above an edge of
+    POTF2_PROFILE_PLAIN_MAX the plain version, thousands of small
+    operations per call, is timed by its one checking call between CUDA
+    events (`plain_wall_ms`) and not profiled (`plain_ms` None)."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     rows = []
     for B, n in shapes:
@@ -389,7 +392,7 @@ def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check",
         diff = float((Lk - Lp).abs().amax())
         scale = float(Lp.abs().amax())
         backward = float((Lk @ Lk.mT - A).abs().amax() / A.abs().amax())
-        if profile_plain:
+        if n <= POTF2_PROFILE_PLAIN_MAX:
             times = timings(lambda: potf2.potf2(A),
                             lambda: potf2.cholesky_potf2_ref(A),
                             lambda: torch.linalg.cholesky_ex(A), 10, 1)
@@ -406,13 +409,14 @@ def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check",
         # A in, L out (n^2 doubles each) and n^3/3 flops per matrix
         bound_ms, bound_by = bound(2 * B * n * n * 8 + B * 4,
                                    B * n ** 3 / 3, torch.float64)
-        row = dict(shape=[B, n, n], max_abs_err=diff, exact=diff == 0.0,
-                   rel_err=diff / scale, info_equal=bool(torch.equal(ik, ip)),
+        row = dict(shape=[B, n, n], max_abs_err=diff,
+                   exact=bool(torch.equal(Lk, Lp)), rel_err=diff / scale,
+                   info_equal=bool(torch.equal(ik, ip)),
                    all_ok=bool((ik == 0).all()), backward_err=backward,
-                   **times, bound_ms=bound_ms, bound_by=bound_by)
+                   **times, bound_ms=bound_ms, bound_by=bound_by,
+                   cuda_launches_per_call=_build.load().potf2_launches(n))
         print(tag, json.dumps(row), flush=True)
-        require(diff <= 1e-14 * scale and row["info_equal"]
-                and row["all_ok"],
+        require(row["exact"] and row["info_equal"] and row["all_ok"],
                 f"potf2 kernel off its plain version at {[B, n, n]}: {row}")
         rows.append(row)
     return rows
@@ -1542,7 +1546,7 @@ def main():
                                  "ldl_energy_check")
     potf2_rows += check_potf2_kernel(
         [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
-        "potf2_energy_check", profile_plain=False)
+        "potf2_energy_check")
 
     # ---- 12. the golden instances through the facade with presolve,
     #          and the DenseLP happy path ----

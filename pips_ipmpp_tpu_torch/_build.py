@@ -102,6 +102,8 @@ def load() -> ctypes.CDLL:
         "sweep_inverse_launches": [ci],
         "sweep_inverse_workspace": [ci],
         "potf2_f64": [vp, vp, vp, vp, ci, ci, vp],
+        "potf2_launches": [ci],
+        "potf2_nb": [],
         "graph_cond_prepare": [],
         "graph_cond_begin": [vp, vp, vp, ci, ci, ctypes.c_void_p],
         "graph_cond_end": [vp, ctypes.c_ulonglong, vp, ci, vp],

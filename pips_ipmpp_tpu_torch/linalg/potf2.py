@@ -6,8 +6,9 @@ LAPACK on its CPU; on the card `torch.linalg.cholesky_ex` is cuSOLVER,
 whose other order of sums accepts root blocks singular to working
 precision that LAPACK refuses (ROADMAP.md §3, F3).  On the card the root
 therefore goes through this module's kernel, `csrc/potf2.cu`, in LAPACK's
-unblocked order; on the CPU it stays with `torch.linalg`, which is LAPACK
-itself.
+unblocked order (blocked over 32-column panels and many CTAs, each
+element's sums still in that order); on the CPU it stays with
+`torch.linalg`, which is LAPACK itself.
 
 `cholesky_potf2(S)` factors (S + S')/2, as `jnp.linalg.cholesky` does by
 default, and returns (L, ok): L lower triangular, ok per matrix (every
@@ -61,7 +62,7 @@ def _potf2_cuda(A: torch.Tensor):
     B = info.numel()
     if B == 0 or n == 0:
         return L, info.zero_()
-    W = torch.empty((B, 3 * n), dtype=A.dtype, device=A.device)
+    W = torch.empty((B, 2 * n), dtype=A.dtype, device=A.device)
     lib = _build.load()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream

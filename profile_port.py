@@ -4,6 +4,7 @@
     python3 profile_port.py --ldl [--ldl-against DIR]
     python3 profile_port.py --ell [--ell-against DIR]
     python3 profile_port.py --sweep [--sweep-against DIR]
+    python3 profile_port.py --potf2 [--potf2-against DIR]
     python3 profile_port.py --fused [path ...] [--reps R]
 
 Paths are `chip_smoke.paths()`: `flagship`, `bigleaf`, `sparse_f32`,
@@ -49,7 +50,9 @@ instead.
 `--ell` times the ELL kernel instead, on every product the sparse
 backend launches at the 8 x 8192 instance (`chip_smoke.ell_cases`, f32
 and f64): per case one JSON line with its device time per call, its
-error against the plain version and its bound (`chip_smoke.ell_bound`).
+error against the plain version, its bound (`chip_smoke.ell_bound`) and,
+for a product without epilogue, `torch.sparse.mm`'s device time on the
+block-diagonal CSR matrix (`chip_smoke.block_csr`).
 `--ell-against DIR` also builds `DIR/pips_ipmpp_tpu_torch/csrc/ell_spmm.cu`
 alone and times the two in turns, other, this, this, other.  A source
 that reads the padded K-major ELL (the kernel before the sliced layout)
@@ -70,6 +73,23 @@ behind the identity padding to a multiple of 16 that its wrapper gave
 it; a library without `sweep_inverse_workspace` (the one-CTA kernel of
 earlier commits) takes no scratch, and a shape it refuses shows its CUDA
 error instead.
+
+`--potf2` times the f64 root Cholesky kernel instead, at
+`chip_smoke.POTF2_SHAPES` and the energy LP's root blocks (550 and 385),
+beside `torch.linalg.cholesky_ex`: per shape one JSON line with its
+milliseconds per call from CUDA events over back-to-back calls
+(`loop_ms`: the profiler misreads one-CTA kernels, and where the host's
+launches set the pace this is an upper bound) and over the same calls
+captured into one CUDA graph (`graph_ms`: no host launch between
+kernels), its CUDA launches per call, each of its CUDA kernels' device
+time and launches per call (profiler), the serial chain's floor,
+ceil(n / nb) times the diagonal-block kernel's time per panel (its
+part in a call at an edge of nb + 1, the first line), and its bound
+(`chip_smoke.bound`).  `--potf2-against DIR` also builds
+`DIR/pips_ipmpp_tpu_torch/csrc/potf2.cu` alone (the same C interface; a
+[B, 3n] workspace covers every version), requires its factor and info to
+equal this kernel's bit for bit, and times the two in turns, other,
+this, this, other (mean of the two turns in `*_mean`).
 """
 from __future__ import annotations
 
@@ -89,7 +109,7 @@ import chip_smoke as cs
 from pips_ipmpp_tpu_torch import _build
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.ipm.solver import pin_float32_precision
-from pips_ipmpp_tpu_torch.linalg import ldl, spmv, sweep
+from pips_ipmpp_tpu_torch.linalg import ldl, potf2, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
                                                         batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
@@ -348,7 +368,7 @@ def ell_table(against):
     reps = 50
     for dtype in (torch.float32, torch.float64):
         be = SparseArrowBackend(lp.astype(torch.float64), factor_dtype=dtype)
-        padded = {}
+        padded, csrs = {}, {}
         for label, op, c, epi in cs.ell_cases(be, lp, gen):
             X = torch.randn(op.N, op.n, c, generator=gen, dtype=op.val.dtype,
                             device=cs.DEVICE)
@@ -363,7 +383,14 @@ def ell_table(against):
                        epilogue=sorted(epi), padded_shape=list(
                            op.ell.val.shape), slots=op.slots, nnz=op.nnz,
                        bound_ms=cs.ell_bound(op, X, Yp, epi)[0],
-                       this_rel_err=err(this()))
+                       this_rel_err=err(this()), library_ms=None)
+            if not epi:
+                # the library yardstick: one block-diagonal CSR product
+                if op.name not in csrs:
+                    csrs[op.name] = cs.block_csr(op.ell.val, op.ell.col,
+                                                 op.n)
+                row["library_ms"] = cs.device_ms(partial(
+                    torch.sparse.mm, csrs[op.name], X.reshape(-1, c)), reps)
             if other is None:
                 row["this_ms"] = [cs.device_ms(this, reps)]
                 print("ell_time", json.dumps(row), flush=True)
@@ -400,7 +427,7 @@ def ell_table(against):
                  for f in (run_other, this, this, run_other)]
             row.update(other_ms=[t[0], t[3]], this_ms=[t[1], t[2]])
             print("ell_time", json.dumps(row), flush=True)
-        del be, padded
+        del be, padded, csrs
         torch.cuda.empty_cache()
 
 
@@ -493,6 +520,112 @@ def sweep_table(against):
         torch.cuda.empty_cache()
 
 
+# the energy LP's root blocks (S11, the dual Schur complement)
+POTF2_ENERGY_SHAPES = [(1, 550), (1, 385)]
+
+
+def graph_loop_ms(fn, n):
+    """Milliseconds per call of `n` back-to-back calls of `fn()` captured
+    into one CUDA graph, one replay between CUDA events (median of 3,
+    after a warm-up replay); the error's text where the capture fails."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return f"not captured: {exc}"[:200]
+    torch.cuda.synchronize()
+    return cs.cuda_ms(graph.replay, 3) / n
+
+
+def potf2_table(against):
+    """The potf2 kernel's milliseconds per call at every POTF2_SHAPES
+    entry and the energy shapes, with its parts, beside cholesky_ex and,
+    given another checkout, that one's kernel in turns."""
+    lib = _build.load()
+    nb = lib.potf2_nb()
+    other = None
+    if against:
+        other = _other_lib(against, "potf2.cu", "potf2")[0].potf2_f64
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        other.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        other.restype = ci
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(3)
+    # the diagonal-block kernel of a call at edge nb + 1: one warp factors
+    # a whole kNb-wide block, the time per panel of the serial chain
+    A = cs.ldl_input(1, nb + 1, nb + 1, gen)
+    diag = kernel_parts(lambda: potf2.potf2(A), 50)["potf2_diag_kernel"]
+    diag_ms = diag["ms"]
+    print("potf2_diag_block", json.dumps(dict(nb=nb, **diag)), flush=True)
+    for B, n in cs.POTF2_SHAPES + POTF2_ENERGY_SHAPES:
+        A = cs.ldl_input(B, n, n, gen)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def raw(fn, W):
+            """One call of a kernel's C function into its own outputs."""
+            L = torch.empty_like(A)
+            info = torch.empty(B, dtype=torch.int32, device=A.device)
+
+            def run():
+                rc = fn(A.data_ptr(), L.data_ptr(), W.data_ptr(),
+                        info.data_ptr(), B, n,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"potf2 at {[B, n, n]}: CUDA "
+                                       f"error {rc}")
+            return run, L, info
+
+        this, L, info = raw(lib.potf2_f64, torch.empty(
+            B, 2 * n, dtype=A.dtype, device=A.device))
+        this()
+        Lw, iw = potf2.potf2(A)
+        torch.cuda.synchronize()
+        reps = 20 if n >= 300 else 200
+        library = lambda: torch.linalg.cholesky_ex(A)          # noqa: E731
+        bound_ms, bound_by = cs.bound(2 * B * n * n * 8 + B * 4,
+                                      B * n ** 3 / 3, torch.float64)
+        row = dict(shape=[B, n, n], nb=nb,
+                   launches_per_call=lib.potf2_launches(n),
+                   wrapper_equal=bool(torch.equal(Lw, L)
+                                      and torch.equal(iw, info)),
+                   info_ok=bool((info == 0).all()), bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   library_loop_ms=cs.loop_ms(library, reps),
+                   library_graph_ms=graph_loop_ms(library, reps))
+        cs.require(row["wrapper_equal"], f"potf2 wrapper differs: {row}")
+        timed = [("this", this)]
+        if other is not None:
+            run_other, Lo, io = raw(other, torch.empty(
+                B, 3 * n, dtype=A.dtype, device=A.device))
+            run_other()
+            torch.cuda.synchronize()
+            row["equal_to_other"] = bool(torch.equal(Lo, L)
+                                         and torch.equal(io, info))
+            cs.require(row["equal_to_other"],
+                       f"potf2 differs from {against}'s at {[B, n, n]}")
+            timed = [("other", run_other), ("this", this), ("this", this),
+                     ("other", run_other)]
+        for key, timer in (("loop_ms", cs.loop_ms),
+                           ("graph_ms", graph_loop_ms)):
+            for who, fn in timed:
+                row.setdefault(f"{who}_{key}", []).append(timer(fn, reps))
+            for who in dict(timed):
+                t = row[f"{who}_{key}"]
+                if all(isinstance(x, float) for x in t):
+                    row[f"{who}_{key}_mean"] = sum(t) / len(t)
+        parts = kernel_parts(this, 5 if n >= 300 else 20)
+        row.update(parts=parts, diag_block_ms=diag_ms,
+                   chain_floor_ms=-(-n // nb) * diag_ms,
+                   device_ms=sum(p["ms"] for p in parts.values()))
+        print("potf2_time", json.dumps(row), flush=True)
+        del A, L, info
+        torch.cuda.empty_cache()
+
+
 def main(argv):
     table = cs.paths()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -515,6 +648,12 @@ def main(argv):
     ap.add_argument("--sweep-against", metavar="DIR", default=None,
                     help="with --sweep: also time DIR's sweep kernel, in "
                          "turns")
+    ap.add_argument("--potf2", action="store_true",
+                    help="time the potf2 kernel at chip_smoke.POTF2_SHAPES "
+                         "and the energy shapes")
+    ap.add_argument("--potf2-against", metavar="DIR", default=None,
+                    help="with --potf2: also time DIR's potf2 kernel, in "
+                         "turns")
     ap.add_argument("--fused", nargs="*", metavar="path", default=None,
                     help=f"time the fused loop (solve_fused) on "
                          f"{', '.join(cs.FUSED_PATHS)} (default: all), or "
@@ -533,6 +672,8 @@ def main(argv):
         ell_table(args.ell_against)
     if args.sweep:
         sweep_table(args.sweep_against)
+    if args.potf2:
+        potf2_table(args.potf2_against)
     if args.fused is not None:
         bad = sorted(set(args.fused) - set(cs.FUSED_PATHS)
                      - set(cs.BATCH_PATHS))
@@ -540,7 +681,8 @@ def main(argv):
             ap.error(f"unknown fused paths {bad}")
         for name in args.fused or list(cs.FUSED_PATHS):
             profile_fused(name, args.reps)
-    kernels = args.ldl or args.ell or args.sweep or args.fused is not None
+    kernels = (args.ldl or args.ell or args.sweep or args.potf2
+               or args.fused is not None)
     for name in args.paths or ([] if kernels else list(table)):
         profile(name, table[name], args.window, args.cg_iters)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
