@@ -50,6 +50,17 @@ read just after (the ELL kernel's also per operator and width):
     dual ones through the whole postsolve, its complementarity products
     held to 1e-3) on the same LP cut to 12 blocks, and the LDL and potf2
     kernels checked at its leaf and root shapes;
+  - the solve modes (`solve_modes_phase`): the energy LP at 96 blocks
+    through the whole pipeline with each mode read from a reference .opt
+    file (OUTER_SOLVE 2 in f64 and f32, PRECONDITION_SPARSE 1 and
+    SC_COMPUTE_BLOCKWISE 1 in f64), each held as the f64 energy run (the
+    f32 one to the f64 BiCGStab objective), the BiCGStab and CG trips, the
+    iterative root's panels and the peak memory printed (the blockwise
+    run's below the cached run's); the fused flagship under outer BiCGStab
+    (f32, LDL kernel) and under the iterative root with the blockwise
+    Schur complement (f64, potf2 at S11 and at the panels [2, 64, 64]),
+    each against its host loop with its Krylov loop a WHILE node of the
+    graph; potf2 at the energy LP's panels [7, 64, 64] and [2, 64, 64];
   - the presolved GAMSsmall instances of
     tests/test_golden_reference.py:62-110 (every gather, complementarity
     held to 1e-3) and the DenseLP happy path through the facade.
@@ -110,6 +121,10 @@ LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
 # of 1701
 SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
                 (64, 1024, 1024), (2, 2048, 2048)]
+# the plain sweep version is profiled up to this edge; above it, hundreds
+# of small operations per call (~100 s of the script's time at 1024 and
+# 2048), it is timed by its one checking call
+SWEEP_PROFILE_PLAIN_MAX = 256
 # (batch, edge) of the f64 two-level root's Cholesky blocks (S11 and the
 # dual Schur complement) that the potf2 kernel factors: the flagship's and
 # the big leaf's (n0 = 64, nD = 128), the same at the batch of 8, the
@@ -558,7 +573,10 @@ def sweep_bound(B, a):
 def check_sweep_kernel():
     """The sweep kernel and its plain f32 version against an f64
     torch.linalg.inv: error <= 4 x the plain f32 error + 1e-6, and the
-    pivot signs of the quasidefinite inertia."""
+    pivot signs of the quasidefinite inertia.  Above an edge of
+    SWEEP_PROFILE_PLAIN_MAX the plain version is timed by its one
+    checking call between CUDA events (`plain_wall_ms`) and not profiled
+    (`plain_ms` None)."""
     lib = _build.load()
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     rows = []
@@ -568,13 +586,27 @@ def check_sweep_kernel():
         ref_inv = torch.linalg.inv(A)
         Ik, dk = sweep.sweep_inverse(A32)
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         Ip, _ = sweep.sweep_inverse_ref(A32)
+        end.record()
+        end.synchronize()
         err_k, abs_k = rel_err(Ik, ref_inv)
         err_p, _ = rel_err(Ip, ref_inv)
         ok = bool(ldl.inverse_ok(Ik, dk, n_pos))
-        times = timings(lambda: sweep.sweep_inverse(A32),
-                        lambda: sweep.sweep_inverse_ref(A32),
-                        lambda: torch.linalg.inv(A32), 10, 3)
+        kernel = lambda: sweep.sweep_inverse(A32)           # noqa: E731
+        lib_inv = lambda: torch.linalg.inv(A32)             # noqa: E731
+        if a <= SWEEP_PROFILE_PLAIN_MAX:
+            times = timings(kernel, lambda: sweep.sweep_inverse_ref(A32),
+                            lib_inv, 10, 3)
+        else:
+            times = dict(ms=device_ms(kernel, 10),
+                         wall_ms=cuda_ms(kernel, 10), plain_ms=None,
+                         plain_wall_ms=start.elapsed_time(end),
+                         library_ms=device_ms(lib_inv, 10),
+                         library_wall_ms=cuda_ms(lib_inv, 10),
+                         library_loop_ms=loop_ms(lib_inv, 200))
         bound_ms, bound_by = sweep_bound(B, a)
         row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
                    plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
@@ -786,7 +818,15 @@ def host_launches(fn):
 FUSED_PATHS = {"flagship": ("flagship", {}), "bigleaf": ("bigleaf", {}),
                "sparse_f32": ("sparse_f32", {}),
                "flagship_update_every_4": ("flagship",
-                                           dict(residual_update_every=4))}
+                                           dict(residual_update_every=4)),
+               # the solve modes (`solve_modes_phase`): outer BiCGStab in
+               # f32 (LDL kernel), and in f64 the iterative root (panels
+               # [2, 64, 64]) with the blockwise Schur complement
+               "flagship_bicgstab": ("flagship", dict(outer_bicgstab=True)),
+               "flagship_precond_blockwise_f64": (
+                   "flagship", dict(factor_dtype="float64",
+                                    iterative_root_panel=64,
+                                    sc_blockwise=64))}
 
 
 # the fused batch (`IPMSolver.solve_fused_batch_async`): name -> (paths()
@@ -1261,6 +1301,7 @@ def energy_phase():
     for name, extra, kernels in (
             ("energy_f64", dict(factor_dtype="float64"), ["potf2_f64"]),
             ("energy_f32", {}, ["ldl_inverse_f32"])):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out, counts = drive(name, partial(energy_run, lp, Options(
             **ENERGY_OPTIONS, **extra)), kernels)
@@ -1268,6 +1309,7 @@ def energy_phase():
         row = dict(case=name, native_library=lib.name,
                    native_build_s=build_s, generate_s=gen_s,
                    total_s=time.perf_counter() - t0, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
                    **{k: v for k, v in out.items() if k != "status"},
                    status=out["status"].name,
                    oracle=ENERGY_ORACLE,
@@ -1312,6 +1354,173 @@ def energy_phase():
     require(out["eq_resid"] < ENERGY_EQ_RESID,
             f"energy_gathers: max |A x - b| = {out['eq_resid']:.3e}")
     return rows
+
+
+# ---- the solve modes --------------------------------------------------------
+# the energy LP at full size under each mode, its .opt line in the
+# reference's names: (case, .opt line, factor dtype, kernels it launches)
+SOLVE_MODE_RUNS = (
+    ("energy_bicgstab_f64", "OUTER_SOLVE 2 int", "float64", ["potf2_f64"]),
+    ("energy_bicgstab_f32", "OUTER_SOLVE 2 int", "auto",
+     ["ldl_inverse_f32"]),
+    ("energy_precond_sparse_f64", "PRECONDITION_SPARSE 1 bool", "float64",
+     ["potf2_f64"]),
+    ("energy_blockwise_f64", "SC_COMPUTE_BLOCKWISE 1 bool", "float64",
+     ["potf2_f64"]),
+)
+# the fused loop under the modes: (FUSED_PATHS entry, kernel that must be
+# captured, iterative loop that must be a WHILE node, objective rtol
+# against the flagship's f64 objective)
+SOLVE_MODE_FUSED = (("flagship_bicgstab", "ldl_inverse_f32", "bicgstab",
+                     OBJ_RTOL),
+                    ("flagship_precond_blockwise_f64", "potf2_f64", "cg",
+                     F64_ORACLE_RTOL))
+# the potf2 kernel at the iterative root's panels: the energy LP's
+# 385-wide dual Schur complement in 64-row panels (padded to 448) and the
+# flagship's 128-wide one
+POTF2_PANEL_SHAPES = [(7, 64), (2, 64)]
+
+
+def mode_stats(record) -> dict:
+    """The iterative solves of one run from `arrow_backend.SOLVE_RECORD`,
+    read back once: BiCGStab trips per direction solve and CG trips per
+    root solve (count, sum, max, not converged), the iterative root's
+    panels and dropped share, and the loops captured as WHILE nodes."""
+    out = {}
+    for kind in ("bicgstab", "cg"):
+        st = [v for k, v in record if k == kind and v is not None]
+        if st:
+            its = torch.stack([v["iterations"] for v in st]).tolist()
+            conv = torch.stack([v["converged"] for v in st]).tolist()
+            out[kind] = dict(solves=len(its), trips=sum(its), max=max(its),
+                             unconverged=conv.count(False))
+    panels = [v for k, v in record if k == "panels" and v is not None]
+    if panels:
+        dropped = torch.stack([v["dropped"] for v in panels]).tolist()
+        out["panels"] = dict(factorizations=len(panels),
+                             count=panels[0]["count"],
+                             dropped_min=min(dropped),
+                             dropped_max=max(dropped))
+    out["captured_loops"] = {
+        kind: sum(1 for k, v in record if k == kind and v is None)
+        for kind in ("bicgstab", "cg")}
+    return out
+
+
+def recorded(run):
+    """`run()` with `arrow_backend.SOLVE_RECORD` on: (its result, the
+    record)."""
+    from pips_ipmpp_tpu_torch.linalg import arrow_backend
+
+    arrow_backend.SOLVE_RECORD = []
+    try:
+        out = run()
+        return out, arrow_backend.SOLVE_RECORD
+    finally:
+        arrow_backend.SOLVE_RECORD = None
+
+
+def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls):
+    """ArrowBackend's three other solve modes at full size: the energy LP
+    through the facade's whole pipeline with each mode read from a
+    reference .opt file (outer BiCGStab in f64 and f32, the iterative root
+    and the blockwise Schur complement in f64), back to back on one LP,
+    each held as the energy f64 run is (or, f32, to the f64 BiCGStab
+    objective), the blockwise run's peak memory below `energy_f64`'s; then
+    the fused loop on the flagship under outer BiCGStab (f32) and under the
+    iterative root with the blockwise Schur complement (f64), each held to
+    its host-loop twin with its kernel and its Krylov loop in the graph and
+    one graph launch per warm solve.  Returns (rows, launch counts)."""
+    from tempfile import TemporaryDirectory
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTED, 0)
+    lp, gen_s = energy_lp(ENERGY["T"])
+    rows = {}
+    with TemporaryDirectory() as tmp:
+        for name, line, fd, kernels in SOLVE_MODE_RUNS:
+            path = Path(tmp) / f"{name}.opt"
+            path.write_text(line + "\n")
+            opts = Options.from_opt_file(str(path), Options(
+                **ENERGY_OPTIONS, factor_dtype=fd))
+            require(opts.outer_bicgstab or opts.sc_blockwise
+                    or opts.iterative_root_panel,
+                    f"{name}: {line!r} set no solve mode")
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            (out, counts), record = recorded(
+                lambda: drive(name, partial(energy_run, lp, opts), kernels))
+            peak = torch.cuda.max_memory_allocated()
+            for k, v in counts.items():
+                total[k] += v
+            row = dict(case=name, opt_line=line, factor_dtype=fd,
+                       status=out["status"].name,
+                       iterations=out["iterations"],
+                       objective=out["objective"],
+                       oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+                       / abs(ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                       stats=out["stats"], phase_times=out["phase_times"],
+                       total_s=time.perf_counter() - t0, launches=counts,
+                       peak_memory_bytes=peak,
+                       start_memory_bytes=start_bytes,
+                       **mode_stats(record))
+            rows[name] = row
+            require(out["stats"] == ENERGY_PRESOLVE_STATS,
+                    f"{name}: presolve stats {out['stats']}")
+            if fd == "float64":
+                require(row["oracle_rel"] <= F64_ORACLE_RTOL
+                        and out["eq_resid"] < ENERGY_EQ_RESID,
+                        f"{name}: objective {out['objective']} off HiGHS by "
+                        f"{row['oracle_rel']:.3e}, max |A x - b| "
+                        f"{out['eq_resid']:.3e}")
+            else:
+                f64 = rows["energy_bicgstab_f64"]["objective"]
+                row["f64_rel"] = abs(out["objective"] - f64) / abs(f64)
+                require(row["f64_rel"] <= OBJ_RTOL,
+                        f"{name}: objective {out['objective']} off the f64 "
+                        f"BiCGStab objective {f64} by {row['f64_rel']:.3e}")
+            if opts.outer_bicgstab:
+                require(row.get("bicgstab", {}).get("solves", 0) > 0,
+                        f"{name}: no outer BiCGStab solve ran")
+            if opts.iterative_root_panel:
+                require(row.get("cg", {}).get("solves", 0) > 0
+                        and "panels" in row, f"{name}: no root CG ran")
+            if opts.sc_blockwise:
+                row["energy_f64_peak_memory_bytes"] = energy_f64_peak
+                require(peak < energy_f64_peak,
+                        f"{name}: peak {peak} B not below energy_f64's "
+                        f"{energy_f64_peak} B")
+            print("solve_modes", json.dumps(row), flush=True)
+    del lp
+    torch.cuda.empty_cache()
+
+    P = paths()
+    for name, kernel, loop, rtol in SOLVE_MODE_FUSED:
+        path, over = FUSED_PATHS[name]
+        st = setup(P[path], **over)
+        (counts, row), record = recorded(
+            lambda: fused_twin(name, st, flag_f64, rtol, [kernel]))
+        for k, v in counts.items():
+            total[k] += v
+        calls = row["host_calls_per_solve"]
+        line = dict(case=name, captured_launches=row["captured_launches"],
+                    host_calls_per_solve=calls,
+                    flagship_host_calls_per_solve=flag_calls,
+                    **mode_stats(record))
+        print("solve_modes_fused", json.dumps(line), flush=True)
+        require(line["captured_loops"][loop] > 0,
+                f"{name}: the {loop} loop was not captured as a WHILE node")
+        require(calls["graph"] == 1 and calls["kernel"] <= flag_calls["kernel"]
+                and calls["copy"] <= flag_calls["copy"],
+                f"{name}: {calls} host calls per warm solve, the flagship's "
+                f"{flag_calls}")
+        del st
+        torch.cuda.empty_cache()
+    print("solve_modes_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, generate_s=gen_s)),
+        flush=True)
+    return rows, total
 
 
 # the golden instances that tests/test_golden_reference.py:62-76 runs
@@ -1547,6 +1756,16 @@ def main():
     potf2_rows += check_potf2_kernel(
         [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
         "potf2_energy_check")
+
+    # ---- 11b. the solve modes: the energy LP under outer BiCGStab, the
+    #           iterative root and the blockwise Schur complement, and the
+    #           fused flagship under them; potf2 at the root's panels ----
+    _, counts = solve_modes_phase(
+        energy["energy_f64"]["peak_memory_bytes"], flag_f64,
+        fused_rows[0]["host_calls_per_solve"])
+    add(counts)
+    potf2_rows += check_potf2_kernel(POTF2_PANEL_SHAPES,
+                                     "potf2_panels_check")
 
     # ---- 12. the golden instances through the facade with presolve,
     #          and the DenseLP happy path ----

@@ -56,13 +56,19 @@ def _check_supported(opts: Options):
         "hierarchical": opts.hierarchical,
         "banded_leaf": opts.banded_leaf,
         "banded_root": opts.banded_root,
-        "sc_blockwise": opts.sc_blockwise > 0,
-        "iterative_root_panel": opts.iterative_root_panel > 0,
-        "outer_bicgstab": opts.outer_bicgstab,
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"Options.{name} is not ported yet")
+
+
+def _solve_modes(opts: Options) -> list[str]:
+    """The options of the solve modes that are set (the reference's
+    OUTER_SOLVE=2, SC_COMPUTE_BLOCKWISE and PRECONDITION_SPARSE)."""
+    return [name for name, on in (
+        ("outer_bicgstab", opts.outer_bicgstab),
+        ("sc_blockwise", opts.sc_blockwise > 0),
+        ("iterative_root_panel", opts.iterative_root_panel > 0)) if on]
 
 
 def _numpy(tree):
@@ -103,25 +109,41 @@ class PIPSIPMppTorchInterface:
         from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
         from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
 
+        fd = resolve_factor_dtype(self.options, self.device)
+        kw = dict(factor_dtype=fd)
         if isinstance(lp, DenseLP):
             from pips_ipmpp_tpu_torch.linalg.dense_backend import \
                 DenseBackend
             be_cls = DenseBackend
         else:
             be_cls = ArrowBackend
+        if isinstance(lp, ArrowheadLP):
+            # the solve modes' backend options, as the JAX facade passes
+            # them (a DenseLP and a densified sparse LP take none)
+            o = self.options
+            kw.update(blockwise_sc=o.sc_blockwise,
+                      iterative_root=o.iterative_root_panel,
+                      sc_diag_dom_bound=o.sc_diag_dom_bound,
+                      it_root_tol=o.it_root_tol,
+                      it_root_maxiter=o.it_root_maxiter)
         if isinstance(lp, SparseArrowheadLP):
             budget = self.options.sparse_densify_max_mb * 1024 * 1024
             if budget > 0 and dense_bytes(lp) <= budget:
                 # the dense twin fits: batched dense factorization
                 self.lp = dense_from_sparse(self.lp)
             else:
+                modes = _solve_modes(self.options)
+                if modes:
+                    raise NotImplementedError(
+                        f"Options {', '.join(modes)} over the sparse "
+                        f"backend are not ported yet (ROADMAP.md §1, item "
+                        f"16: the sparse backend under the solve modes)")
                 from pips_ipmpp_tpu_torch.linalg.sparse_backend import \
                     SparseArrowBackend
                 be_cls = SparseArrowBackend
         self.backend_class = be_cls
-        fd = resolve_factor_dtype(self.options, self.device)
-        self._solver = IPMSolver(partial(be_cls, factor_dtype=fd),
-                                 self.options, device=self.device)
+        self._solver = IPMSolver(partial(be_cls, **kw), self.options,
+                                 device=self.device)
 
     def _sync(self):
         if self.device.type == "cuda":

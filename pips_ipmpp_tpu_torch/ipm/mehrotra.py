@@ -34,10 +34,39 @@ class StepStats:
     factor_ok: Any
 
 
-def _solve_dir(be, it, res, comp, Ominv, fac, opts: Options):
+def _bicg_tol(opts: Options, iteration):
+    """Iteration-adaptive outer-BiCGStab tolerance (reference
+    set_BiCGStab_tolerance, InteriorPointMethod.cpp:655-669): loose early
+    (1e-8), tightening to `outer_bicg_tol` as the IPM converges.  An
+    iteration given as a device tensor (the fused loop) gives a device
+    tensor."""
+    if not opts.dynamic_bicg_tol or iteration is None:
+        return opts.outer_bicg_tol
+    if not isinstance(iteration, torch.Tensor):
+        return (1e-8 if iteration <= 3 else
+                1e-9 if iteration <= 7 else opts.outer_bicg_tol)
+    late = torch.full(iteration.shape, opts.outer_bicg_tol,
+                      dtype=torch.float64, device=iteration.device)
+    return torch.where(iteration <= 3, 1e-8,
+                       torch.where(iteration <= 7, 1e-9, late))
+
+
+def _solve_dir(be, it, res, comp, Ominv, fac, opts: Options,
+               iteration=None):
+    """One search direction; returns (direction, outer BiCGStab stats or
+    None)."""
     rhs = F.assemble_reduced_rhs(be, it, res, comp, Ominv)
-    dx, dy, dz = be.solve_reduced(fac, rhs, opts.refinement_steps)
-    return F.recover_step(be, it, res, comp, Ominv, rhs, dx, dy, dz)
+    stats = None
+    if opts.outer_bicgstab and hasattr(be, "solve_reduced_bicgstab"):
+        # OUTER_SOLVE=2: BiCGStab on the full structured KKT, the direct
+        # solve as its preconditioner (the reference's GAMS interface
+        # forces this mode, gmspips.cpp:79)
+        dx, dy, dz, stats = be.solve_reduced_bicgstab(
+            fac, rhs, max_iters=opts.outer_max_iters,
+            tol=_bicg_tol(opts, iteration))
+    else:
+        dx, dy, dz = be.solve_reduced(fac, rhs, opts.refinement_steps)
+    return F.recover_step(be, it, res, comp, Ominv, rhs, dx, dy, dz), stats
 
 
 def _alphas(be, it, d, opts: Options):
@@ -66,11 +95,11 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
              iteration=None, res=None):
     """One full IPM iteration. Returns (new_iterate, StepStats).
 
-    `iteration` (int or None) gates the late-iteration small-pair
-    correctors (first_iter_small_correctors).  `res` optionally passes
-    residuals already computed for THIS iterate."""
-    if opts.outer_bicgstab:
-        raise NotImplementedError("outer_bicgstab is not ported yet")
+    `iteration` (an int, a device tensor in the fused loop, or None)
+    gates the late-iteration small-pair correctors
+    (first_iter_small_correctors) and the adaptive outer-BiCGStab
+    tolerance.  `res` optionally passes residuals already computed for
+    THIS iterate."""
     if res is None:
         res = F.compute_residuals(be, it)
     Dx, Ominv = F.kkt_diagonals(be, it)
@@ -81,7 +110,8 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
 
     # ---- predictor (affine scaling) ----
     comp_aff = F.comp_rhs_affine(be, it)
-    d_aff = _solve_dir(be, it, res, comp_aff, Ominv, fac, opts)
+    d_aff, _ = _solve_dir(be, it, res, comp_aff, Ominv, fac, opts,
+                          iteration)
     ap_aff, ad_aff = _alphas(be, it, d_aff, opts)
     mu_aff = F.mu_after_step(be, it, d_aff, ap_aff, ad_aff)
 
@@ -91,13 +121,22 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
 
     # ---- corrector (combined direction) ----
     comp_corr = F.comp_rhs_corrector(be, it, d_aff, sigma_mu)
-    d = _solve_dir(be, it, res, comp_corr, Ominv, fac, opts)
+    d, bicg = _solve_dir(be, it, res, comp_corr, Ominv, fac, opts,
+                         iteration)
 
     # ---- weighted predictor-corrector line search (reference :459-526) --
     if opts.n_linesearch_points > 1:
         d, a_p, a_d = _weighted_pc_search(be, it, d_aff, d, opts)
     else:
         a_p, a_d = _alphas(be, it, d, opts)
+
+    # dynamic corrector budget: when the outer BiCGStab had to work hard,
+    # skip extra correctors (reference :639-653, the Observer feedback)
+    allow_gondzio = True
+    if bicg is not None:
+        allow_gondzio = ((bicg["iterations"]
+                          < max(opts.outer_max_iters - 1, 1))
+                         & bicg["converged"])
 
     # ---- Gondzio multiple centrality correctors (reference :236-358) ----
     n_gondzio = torch.zeros(mu.shape, dtype=torch.int32, device=mu.device)
@@ -113,7 +152,7 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
 
         def cond(carry):
             _, ap_c, ad_c, k, n_small, _, go = carry
-            return (go & (torch.minimum(ap_c, ad_c) < 1.0)
+            return (go & (torch.minimum(ap_c, ad_c) < 1.0) & allow_gondzio
                     & (k < opts.max_gondzio_correctors)
                     & (n_small < max_small))
 
@@ -130,7 +169,8 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
                 small_corr, float("inf"))
             comp_g = F.comp_rhs_gondzio(be, it, d_c, ap_t, ad_t, sigma_mu,
                                         opts.beta_min, beta_hi)
-            corr = _solve_dir(be, it, zero_res, comp_g, Ominv, fac, opts)
+            corr, _ = _solve_dir(be, it, zero_res, comp_g, Ominv, fac, opts,
+                                 iteration)
 
             # per-side weighted corrector addition: scan weights, pick the
             # best primal and dual weights INDEPENDENTLY
@@ -191,9 +231,10 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
                 9.0 * mu / torch.clamp_min(mu_t - mu, 1e-300) * 0.9995, f))
             return ap * f, ad * f
 
-        a_p_f, a_d_f = dev_cond(
-            torch.minimum(a_p_f, a_d_f) < opts.probing_trigger, probed, None,
-            (a_p_f, a_d_f))
+        trouble = torch.minimum(a_p_f, a_d_f) < opts.probing_trigger
+        if bicg is not None:
+            trouble = trouble | ~bicg["converged"]
+        a_p_f, a_d_f = dev_cond(trouble, probed, None, (a_p_f, a_d_f))
 
     # ---- numerical-troubles path (reference :528-627): when the combined
     # step collapses, retry with a PURE CENTERING direction (sigma = 1,
@@ -202,7 +243,8 @@ def ipm_step(be, it: F.Iterate, delta_p, delta_d, opts: Options,
         def centered(_d, _ap, _ad):
             comp_c = F.comp_rhs_corrector(
                 be, it, tmap(torch.zeros_like, d_aff), mu)
-            d_c = _solve_dir(be, it, res, comp_c, Ominv, fac, opts)
+            d_c, _ = _solve_dir(be, it, res, comp_c, Ominv, fac, opts,
+                                iteration)
             ap_c, ad_c = _alphas(be, it, d_c, opts)
             return d_c, 0.7 * ap_c, 0.7 * ad_c
 

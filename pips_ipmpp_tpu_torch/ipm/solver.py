@@ -97,12 +97,19 @@ class IPMSolver:
     `be_ctor(lp) -> backend`; `device` is where the LP, the iterate and the
     factors live: the CUDA card unless the caller passes `device="cpu"`.
     Nothing picks the CPU on its own: without a CUDA device the default
-    raises when the first tensor moves to it."""
+    raises when the first tensor moves to it.
+
+    `troubles_hook() -> be_ctor | None` is consulted by the host loop once
+    the regularization ladder is exhausted: it may relax the backend (e.g.
+    `sc_precond.SCsparsifier.decrease_diag_dom_bound`, a less aggressive
+    preconditioner, the reference's InteriorPointMethod.cpp:629-637) and
+    return the constructor the solve goes on with."""
 
     def __init__(self, be_ctor: Callable, opts: Optional[Options] = None,
-                 *, device="cuda"):
+                 *, device="cuda", troubles_hook: Optional[Callable] = None):
         self.be_ctor = be_ctor
         self.opts = opts or Options()
+        self.troubles_hook = troubles_hook
         self.device = torch.device(device)
         self._graphs: dict = {}     # backend signature -> FusedGraph
         pin_float32_precision()
@@ -163,6 +170,12 @@ class IPMSolver:
                 dp, dd = strat.deltas(rstate)
                 new_it, stats, stats_h = self._step(be, it, dp, dd, k)
                 retries += 1
+            if not stats_h[0] and self.troubles_hook is not None:
+                new_ctor = self.troubles_hook()
+                if new_ctor is not None:
+                    self.be_ctor = new_ctor
+                    be = new_ctor(lp)
+                    new_it, stats, stats_h = self._step(be, it, dp, dd, k)
             if not stats_h[0]:
                 status = TerminationStatus.UNKNOWN
                 break
@@ -227,12 +240,17 @@ class IPMSolver:
         synchronization.  On CUDA one graph is captured per backend shape
         and B, as in `solve_fused_async`; on the CPU the loop runs
         eagerly.  Sparse LPs raise: their batch is not ported
-        (ROADMAP.md §1, item 14)."""
+        (ROADMAP.md §1, item 14); so do the outer BiCGStab and the
+        backend's blockwise and iterative-root modes (item 15)."""
         lps = list(lps)
         if any(isinstance(lp, SparseArrowheadLP) for lp in lps):
             raise NotImplementedError(
                 "a batch of sparse LPs is not ported yet (ROADMAP.md §1, "
                 "item 14: the sparse batch)")
+        if self.opts.outer_bicgstab:
+            raise NotImplementedError(
+                "outer_bicgstab over a batch is not ported yet (ROADMAP.md "
+                "§1, item 15: the fused batch under the solve modes)")
         pin_float32_precision()
         return self._run_fused(stack_lps(
             [lp.to(self.device).astype(WORKING_DTYPE) for lp in lps]))

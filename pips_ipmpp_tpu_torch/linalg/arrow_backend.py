@@ -26,6 +26,14 @@ dual Schur complement).
 Solves run Lsolve -> Dsolve -> Ltsolve with adaptive iterative refinement
 on the augmented residual in the working dtype.
 
+Three other modes of the reference (single LP): the blockwise Schur
+complement (`blockwise_sc`: the contribution streamed in column chunks, no
+K^{-1}R caches, one more leaf solve in Ltsolve), the iterative root
+(`iterative_root`: S11 and sparsified block-Jacobi panels of the dual
+Schur complement factored, the Dsolve by preconditioned CG,
+`linalg/sc_precond.py`) and outer BiCGStab on the whole system with one
+structured solve as its preconditioner (`solve_reduced_bicgstab`).
+
 Over a stack of B LPs (`core/lp.py::stack_lps`; `batch_shape == (B,)`)
 every tensor carries the leading batch axis, the shifts and health flags
 are one per LP, all B·N leaves go to the leaf kernel in one call (the
@@ -48,12 +56,14 @@ import torch
 
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, _maxabs
 from pips_ipmpp_tpu_torch.core.spaces import (RVec, XVec, _vdot, bcast,
-                                              reduce_all, select)
-from pips_ipmpp_tpu_torch.ipm.control import dev_while
+                                              reduce_all, select, tmap)
+from pips_ipmpp_tpu_torch.ipm.control import capturing, dev_while
 from pips_ipmpp_tpu_torch.ipm.formulation import Bounds, ReducedRhs
 from pips_ipmpp_tpu_torch.linalg.ldl import (inverse_from_factors,
                                              ldl_inverse_factors)
 from pips_ipmpp_tpu_torch.linalg.potf2 import cholesky_potf2
+from pips_ipmpp_tpu_torch.linalg.sc_precond import (block_jacobi_apply,
+                                                    block_jacobi_factors)
 from pips_ipmpp_tpu_torch.linalg.sweep import sweep_inverse
 
 
@@ -66,8 +76,9 @@ class ArrowFactors:
     Ninv: Optional[torch.Tensor]     # [N, a, a] explicit Neq^{-1}
     Einv: torch.Tensor               # [N, n]
     Om: torch.Tensor                 # [N, mI]
-    Ux: torch.Tensor                 # [N, n, nS]      K^{-1}R rows x
-    Um: torch.Tensor                 # [N, mE+mI, nS]  K^{-1}R rows (y,z)
+    Ux: Optional[torch.Tensor]       # [N, n, nS]      K^{-1}R rows x
+    Um: Optional[torch.Tensor]       # [N, mE+mI, nS]  K^{-1}R rows (y,z)
+                                     # (None with blockwise_sc)
     chol1: Optional[torch.Tensor]    # [n0, n0] Cholesky of S11
     S11inv: Optional[torch.Tensor]   # [n0, n0] explicit inverse
     T: Optional[torch.Tensor]        # [n0, nD] S11^{-1} S12
@@ -82,6 +93,11 @@ class ArrowFactors:
     ok: torch.Tensor                 # factorization-health flag (per LP)
     extra_root: object = 0.0         # extra root-only shift applied by the
                                      # in-factorize escalation (per LP)
+    Sd: Optional[torch.Tensor] = None     # [nD, nD] dense dual Schur
+                                     # complement (iterative root: the CG's
+                                     # matvec)
+    Pchol: Optional[torch.Tensor] = None  # [k, pb, pb] sparsified block-
+                                     # Jacobi panels' Cholesky (sc_precond)
 
 
 def _mv(A, x):
@@ -131,6 +147,121 @@ def _root_cholesky(S, nb: int = 0):
     return _cholesky(S, nb)
 
 
+# Opt-in record of the iterative solves: a list to append to, or None.
+# Each outer BiCGStab solve appends ("bicgstab", stats), each root CG solve
+# ("cg", stats) and each iterative-root factorization ("panels",
+# dict(count=k, dropped=share)), every value a device tensor (no
+# read-back).  Inside a graph capture the entry is (kind, None): the loop
+# became a WHILE node, whose values exist only at replay.  `chip_smoke.py`
+# reads it.
+SOLVE_RECORD: Optional[list] = None
+
+
+def _record(kind: str, stats: dict, like: torch.Tensor):
+    if SOLVE_RECORD is not None:
+        SOLVE_RECORD.append((kind, None if capturing(like) else stats))
+
+
+def preconditioned_bicgstab(b, precond, applyK, dot, max_iters: int, tol):
+    """Preconditioned BiCGStab on K u = b over a tensor or a tuple of
+    tensors (the
+    reference's BiCGStabSolver with its breakdown and divergence flags,
+    BiCGStabSolver.h:14-39; the JAX package's `preconditioned_bicgstab`).
+
+    `precond(v)` and `applyK(v)` map such a value to another; `dot(a, b)`
+    is the inner product (a 0-dim tensor).  The loop is a `control.dev_while`
+    (a WHILE node inside a capture) of at most `max_iters` trips; `tol`
+    may be a device tensor.  Returns (u, stats): `iterations`, `relres`,
+    `converged` and `flag` (0, 1 breakdown, 2 divergence), all device
+    tensors."""
+    bnorm = torch.sqrt(torch.clamp(dot(b, b), min=1e-300))
+    u0 = precond(b)
+    r0 = tmap(torch.sub, b, applyK(u0))
+    rhat = r0
+    rho0 = dot(rhat, r0)
+    rnorm0 = torch.sqrt(torch.clamp(dot(r0, r0), min=0.0))
+    tol_b = tol * bnorm
+
+    def cond(c):
+        _, _, _, _, _, _, _, k, rnorm, flag = c
+        return (k < max_iters) & (rnorm > tol_b) & (flag == 0)
+
+    def body(c):
+        u, r, p, v, rho_prev, alpha, omega, k, _, _ = c
+        rho = dot(rhat, r)
+        breakdown = torch.abs(rho) < 1e-300
+        beta = (rho / torch.where(breakdown, 1.0, rho_prev)) \
+            * (alpha / torch.where(torch.abs(omega) < 1e-300, 1.0, omega))
+        p = tmap(lambda rr, pp, vv: rr + beta * (pp - omega * vv), r, p, v)
+        ph = precond(p)
+        v2 = applyK(ph)
+        denom = dot(rhat, v2)
+        alpha2 = rho / torch.where(torch.abs(denom) < 1e-300, 1.0, denom)
+        s = tmap(lambda a, bb: a - alpha2 * bb, r, v2)
+        sh = precond(s)
+        t = applyK(sh)
+        omega2 = dot(t, s) / torch.clamp(dot(t, t), min=1e-300)
+        u2 = tmap(lambda a, x, y: (a + alpha2 * x) + omega2 * y, u, ph, sh)
+        r2 = tmap(lambda a, bb: a - omega2 * bb, s, t)
+        rnorm2 = torch.sqrt(torch.clamp(dot(r2, r2), min=0.0))
+        flag2 = torch.where(breakdown | (torch.abs(denom) < 1e-300), 1,
+                            torch.where(rnorm2 > 1e4 * rnorm0, 2, 0)
+                            ).to(torch.int32)
+        return (u2, r2, p, v2, rho, alpha2, omega2, k + 1, rnorm2, flag2)
+
+    zero = tmap(torch.zeros_like, b)
+    one = torch.ones_like(bnorm)
+    k0 = torch.zeros((), dtype=torch.int32, device=bnorm.device)
+    u, _, _, _, _, _, _, k, rnorm, flag = dev_while(
+        cond, body, (u0, r0, zero, zero, rho0, one, one.clone(), k0, rnorm0,
+                     k0.clone()), max_iters)
+    stats = dict(iterations=k, relres=rnorm / bnorm,
+                 converged=rnorm <= tol_b, flag=flag)
+    _record("bicgstab", stats, bnorm)
+    return u, stats
+
+
+def preconditioned_cg(b, precond, applyK, dot, max_iters: int, tol):
+    """Preconditioned conjugate gradients for an SPD operator (the
+    reference's CGSolver/PCGSolver family; the JAX package's
+    `preconditioned_cg`), with the contract of `preconditioned_bicgstab`:
+    a `dev_while` of at most `max_iters` trips, flag 1 on breakdown.
+    Returns (u, stats)."""
+    bb = dot(b, b)
+    bnorm = torch.sqrt(torch.clamp(bb, min=1e-300))
+    z0 = precond(b)
+    rn0 = torch.sqrt(torch.clamp(bb, min=0.0))
+    tol_b = tol * bnorm
+
+    def cond(c):
+        _, _, _, _, _, k, rn, flag = c
+        return (k < max_iters) & (rn > tol_b) & (flag == 0)
+
+    def body(c):
+        u, r, _, p, rz, k, _, _ = c
+        Kp = applyK(p)
+        denom = dot(p, Kp)
+        breakdown = torch.abs(denom) < 1e-300
+        alpha = rz / torch.where(breakdown, 1.0, denom)
+        u2 = tmap(lambda a, bb: a + alpha * bb, u, p)
+        r2 = tmap(lambda a, bb: a - alpha * bb, r, Kp)
+        z2 = precond(r2)
+        rz2 = dot(r2, z2)
+        beta = rz2 / torch.where(torch.abs(rz) < 1e-300, 1.0, rz)
+        p2 = tmap(lambda a, bb: a + beta * bb, z2, p)
+        rn2 = torch.sqrt(torch.clamp(dot(r2, r2), min=0.0))
+        return (u2, r2, z2, p2, rz2, k + 1, rn2, breakdown.to(torch.int32))
+
+    k0 = torch.zeros((), dtype=torch.int32, device=bnorm.device)
+    u, _, _, _, _, k, rn, flag = dev_while(
+        cond, body, (tmap(torch.zeros_like, b), b, z0, z0, dot(b, z0), k0,
+                     rn0, k0.clone()), max_iters)
+    stats = dict(iterations=k, relres=rn / bnorm, converged=rn <= tol_b,
+                 flag=flag)
+    _record("cg", stats, bnorm)
+    return u, stats
+
+
 def scalar(v, like: torch.Tensor, shape=()) -> torch.Tensor:
     """A shift as a tensor of `like`'s dtype and device and of `shape`
     (the batch shape: one shift per LP): a tensor is converted (and
@@ -155,7 +286,17 @@ class ArrowBackend:
     factors they go through Cholesky.  `sweep_kernel=True` (with the LDL
     kernel's explicit inverses only) inverts leaves and root with the sweep
     kernel instead: opt-in, since the sweep is unstable on IPM-conditioned
-    systems."""
+    systems.
+
+    Three solve modes of the reference (single LP; a stack of LPs raises):
+    `blockwise_sc > 0` streams the Schur contribution in column chunks of
+    that size and keeps no K^{-1}R caches (SC_COMPUTE_BLOCKWISE);
+    `iterative_root > 0` factors only S11 and the sparsified block-Jacobi
+    panels of that size of the dual Schur complement, whose solve becomes
+    preconditioned CG (PRECONDITION_SPARSE, `linalg/sc_precond.py`); and
+    `solve_reduced_bicgstab`, outer BiCGStab on the whole KKT system
+    preconditioned by one structured solve (OUTER_SOLVE=2), which
+    `ipm_step` runs under `Options.outer_bicgstab`."""
 
     def __init__(self, lp: ArrowheadLP, factor_dtype=torch.float64,
                  explicit_inverse: Optional[bool] = None,
@@ -168,15 +309,21 @@ class ArrowBackend:
                  blockwise_sc: int = 0,
                  dist_root: bool = False,
                  iterative_root: int = 0,
+                 sc_diag_dom_bound: float = 0.001,
+                 it_root_tol: float = 1e-9,
+                 it_root_maxiter: int = 200,
                  band_root_plan=None,
                  sweep_kernel: Optional[bool] = None):
-        for name, val in (("blockwise_sc", blockwise_sc),
-                          ("dist_root", dist_root),
-                          ("iterative_root", iterative_root),
+        for name, val in (("dist_root", dist_root),
                           ("band_root_plan", band_root_plan)):
             if val:
                 raise NotImplementedError(f"ArrowBackend({name}=...) is not "
                                           f"ported yet")
+        if lp.batch_shape and (blockwise_sc or iterative_root):
+            raise NotImplementedError(
+                "blockwise_sc and iterative_root over a stack of LPs are "
+                "not ported yet (ROADMAP.md §1, item 15: the fused batch "
+                "under the solve modes)")
         self.lp = lp
         self.batch_shape = lp.batch_shape
         self.factor_dtype = factor_dtype
@@ -195,6 +342,20 @@ class ArrowBackend:
         self.root_escalation_base = root_escalation_base
         self.root_escalation_growth = root_escalation_growth
         self.root_escalation_max = root_escalation_max
+        # blockwise Schur computation (reference SC_COMPUTE_BLOCKWISE,
+        # DistributedLinearSystem.h:77-99): factorize memory
+        # O(N k blockwise_sc) instead of O(N k nS); 0 keeps the caches
+        self.blockwise_sc = int(blockwise_sc)
+        # iterative root (reference PRECONDITION_SPARSE + SCsparsifier):
+        # O(nD pb^2 + its nD^2) per iteration instead of O(nD^3)
+        self.iterative_root = int(iterative_root)
+        self.sc_diag_dom_bound = float(sc_diag_dom_bound)
+        self.it_root_tol = float(it_root_tol)
+        self.it_root_maxiter = int(it_root_maxiter)
+        if self.iterative_root:
+            # the LDL kernel owns the whole root; the iterative root
+            # replaces the dual Schur factorization of the two-level path
+            self.ldl_kernel = False
         self.bounds = Bounds(
             c=XVec(lp.c0, lp.cN),
             b=RVec(lp.b0, lp.bN, lp.bl),
@@ -336,6 +497,9 @@ class ArrowBackend:
                        dim=-1)                                 # [N, mE+mI]
         MEi = M * Einv[..., None, :]
         L, Ninv, leaf_ok = self._leaf_factor(M, MEi, Fd)
+        if self.blockwise_sc > 0:
+            contrib = self._contrib_blockwise(L, Ninv, Einv).to(dt)
+            return L, Ninv, Einv, Om, None, None, contrib, leaf_ok
 
         # ---- border solves U = K^{-1} R (structure-exploiting) ----
         # E^{-1} R_x = [0 | Einv*F' | Einv*G']
@@ -471,6 +635,22 @@ class ArrowBackend:
                                 ok=leaf_ok & root_ok, extra_root=extra.to(dt),
                                 **common)
 
+        if self.iterative_root:
+            # ---- preconditioned iterative root (reference SCsparsifier +
+            # precondSC): factor only S11 and the sparsified block-Jacobi
+            # panels of the dual Schur complement; Dsolve runs CG ----
+            chol1, ok1 = _root_cholesky(S11.to(fd), nb)
+            T = _bchol_solve(chol1, S12.to(fd))
+            Sdual = -(S22.to(fd) - S12.to(fd).mT @ T)
+            Pchol, okp, dropped = block_jacobi_factors(
+                Sdual, self.iterative_root, self.sc_diag_dom_bound)
+            _record("panels", dict(count=Pchol.shape[0], dropped=dropped),
+                    Sdual)
+            return ArrowFactors(chol1=chol1, S11inv=None, T=T.to(dt),
+                                chol2=None, Sdinv=None, Einv0=Einv0,
+                                Sinv=None, ok=leaf_ok & ok1 & okp, Sd=Sdual,
+                                Pchol=Pchol, **common)
+
         # ---- root two-level condensation ----
         chol1, ok1 = _root_cholesky(S11.to(fd), nb)
         T = _bchol_solve(chol1, S12.to(fd))
@@ -500,6 +680,54 @@ class ArrowBackend:
             n += 1
         return n
 
+    def _leaf_apply_inv(self, L, Ninv, Einv, rx, rm):
+        """K_i^{-1} applied to (rx [N, n, c], rm [N, a, c]), multi-RHS."""
+        fd = self.factor_dtype
+        Mf = self.Mf
+        t = Mf @ (Einv[..., None] * rx).to(fd) - rm.to(fd)
+        um = self._apply_Ninv_multi(L, Ninv, t)
+        ux = Einv[..., None].to(fd) * (rx.to(fd) - Mf.mT @ um)
+        return ux, um
+
+    def _contrib_blockwise(self, L, Ninv, Einv):
+        """The Schur contribution R' K^{-1} R streamed in column chunks of
+        `blockwise_sc` (reference SC_COMPUTE_BLOCKWISE /
+        addTermToSchurComplBlocked): the columns are the groups [x0 (n0) |
+        yl (mEl) | zl (mIl)]; each chunk is solved and contracted against
+        the whole border, and no [N, k, nS] cache is kept."""
+        lp = self.lp
+        fd = self.factor_dtype
+        n0, mEl, mIl = lp.n0, lp.mEl, lp.mIl
+        mE, mI = lp.mE, lp.mI
+        nS = n0 + mEl + mIl
+        ch = self.blockwise_sc
+        dt, dev = Einv.dtype, Einv.device
+        N = lp.N
+        Af, Cf, Ff, Gf = (x.to(fd) for x in (lp.A, lp.C, lp.F, lp.G))
+        contrib = torch.zeros((nS, nS), dtype=fd, device=dev)
+
+        def chunk(col, rx, rm):
+            """Columns col:col+c of R' K^{-1} R, rows [x0; yl; zl]."""
+            ux, um = self._leaf_apply_inv(L, Ninv, Einv, rx, rm)
+            contrib[:, col:col + rx.shape[-1]] = torch.cat([
+                torch.einsum("imk,imc->kc", Af, um[:, :mE])
+                + torch.einsum("imk,imc->kc", Cf, um[:, mE:]),
+                torch.einsum("ilm,imc->lc", Ff, ux),
+                torch.einsum("ilm,imc->lc", Gf, ux)])
+
+        # x0 columns: R_x = 0, R_m = [A; C] columns
+        for s in range(0, n0, ch):
+            e = min(s + ch, n0)
+            chunk(s, torch.zeros((N, lp.n, e - s), dtype=dt, device=dev),
+                  torch.cat([lp.A[:, :, s:e], lp.C[:, :, s:e]], dim=1))
+        # yl and zl columns: R_x = F' (G'), R_m = 0
+        for col, W, m in ((n0, lp.F, mEl), (n0 + mEl, lp.G, mIl)):
+            for s in range(0, m, ch):
+                e = min(s + ch, m)
+                chunk(col + s, W[:, s:e, :].mT,
+                      torch.zeros((N, mE + mI, e - s), dtype=dt, device=dev))
+        return contrib
+
     def factorization_ok(self, fac: ArrowFactors) -> torch.Tensor:
         return fac.ok
 
@@ -522,6 +750,18 @@ class ArrowBackend:
         if fac.Sinv is not None:
             u = _mv(fac.Sinv, torch.cat([p, q], dim=-1).to(fd)).to(dt)
             return u[..., :p.shape[-1]], u[..., p.shape[-1]:]
+        if fac.Pchol is not None:
+            # Dsolve by preconditioned CG on the SPD dual Schur complement
+            # (the reference's iterative root solve with the sparsified
+            # preconditioner, sLinsysRootAug.C:930, precondSC)
+            q2 = q.to(fd) - _mv(fac.T.to(fd).mT, p.to(fd))
+            dsol, _ = preconditioned_cg(
+                q2, lambda v: block_jacobi_apply(fac.Pchol, v),
+                lambda v: _mv(fac.Sd, v), _vdot, self.it_root_maxiter,
+                self.it_root_tol)
+            d = -dsol.to(dt)
+            a = _bchol_solve(fac.chol1, p.to(fd)).to(dt) - _mv(fac.T, d)
+            return a, d
         q2 = (q - _mv(fac.T.mT, p)).to(fd)
         if self.explicit_inverse:
             d = -_mv(fac.Sdinv, q2).to(dt)
@@ -606,10 +846,69 @@ class ArrowBackend:
         a, d = self._root_solve(fac, p, q)
 
         # Ltsolve: back-substitute into blocks
+        if fac.Ux is None:
+            # no cached K^{-1}R (blockwise Schur complement): K^{-1}(R s0)
+            # by one more leaf solve (reference blockwise Ltsolve)
+            rx2 = (torch.einsum("ilm,l->im", lp.F, d[yl0:zl0])
+                   + torch.einsum("ilm,l->im", lp.G, d[zl0:]))
+            rm2 = torch.cat([torch.einsum("imk,k->im", lp.A, a),
+                             torch.einsum("imk,k->im", lp.C, a)], dim=1)
+            gx2, gm2 = self._leaf_solve(fac, rx2, rm2)
+            return a, gx - gx2, d, gm - gm2
         s0 = torch.cat([a, d[..., yl0:zl0], d[..., zl0:]], dim=-1)
         dx_blocks = gx - torch.einsum("...imS,...S->...im", fac.Ux, s0)
         gm_out = gm - torch.einsum("...iaS,...S->...ia", fac.Um, s0)
         return a, dx_blocks, d, gm_out
+
+    # ------------------------------------------------------------------
+    # Outer BiCGStab on the whole structured augmented system,
+    # preconditioned by one structured solve (the reference's OUTER_SOLVE=2
+    # path: LinearSystem::solveCompressedBiCGStab, LinearSystem.C:550, its
+    # preconditioner solveCompressed, :500-515).  The state is the tuple
+    # (dx_first, dx_blocks, d0, gm) of `_solve_core`.
+    # ------------------------------------------------------------------
+    def _state_dot(self, a, b):
+        ax0, axb, ad0, agm = a
+        bx0, bxb, bd0, bgm = b
+        return ((_vdot(ax0, bx0) + _vdot(ad0, bd0))
+                + (_vdot(axb, bxb) + _vdot(agm, bgm)))
+
+    def _apply_K(self, fac, state):
+        """K state: minus `_aug_residual` with a zero right-hand side."""
+        ex0, eq0, ex, em = self._aug_residual(
+            fac, *(torch.zeros_like(v) for v in
+                   (state[0], state[2], state[1], state[3])), *state)
+        return (-ex0, -ex, -eq0, -em)
+
+    def solve_reduced_bicgstab(self, fac: ArrowFactors, rhs: ReducedRhs,
+                               max_iters: int = 8, tol=1e-10):
+        """BiCGStab on K u = rho with M^{-1} = one structured direct solve
+        (`_solve_core`).  Returns (dx, dy, dz, stats): the stats (device
+        tensors) feed the IPM's corrector budget and probing trigger (the
+        reference's Observer feedback, InteriorPointMethod.cpp:819-831)."""
+        if self.batch_shape:
+            raise NotImplementedError(
+                "outer BiCGStab over a stack of LPs is not ported yet "
+                "(ROADMAP.md §1, item 15: the fused batch under the solve "
+                "modes)")
+        lp = self.lp
+        m0E, m0I, mEl, mE = lp.m0E, lp.m0I, lp.mEl, lp.mE
+        b = (-rhs.rhat_x.first, -rhs.rhat_x.blocks,
+             torch.cat([-rhs.rA.first, -rhs.rhat_z.first, -rhs.rA.link,
+                        -rhs.rhat_z.link]),
+             torch.cat([-rhs.rA.blocks, -rhs.rhat_z.blocks], dim=1))
+
+        def precond(v):
+            x0, xb, d0, gm = v
+            return self._solve_core(fac, x0, d0, xb, gm)
+
+        (dx_first, dx_blocks, d0, gm), stats = preconditioned_bicgstab(
+            b, precond, lambda v: self._apply_K(fac, v), self._state_dot,
+            max_iters, tol)
+        yl0, zl0 = m0E + m0I, m0E + m0I + mEl
+        dy = RVec(-d0[:m0E], -gm[:, :mE], -d0[yl0:zl0])
+        dz = RVec(-d0[m0E:yl0], -gm[:, mE:], -d0[zl0:])
+        return XVec(dx_first, dx_blocks), dy, dz, stats
 
     def _aug_residual(self, fac, p0, q0, rho_x, rho_m,
                       dx_first, dx_blocks, d0, gm):

@@ -116,11 +116,22 @@ class SparseArrowBackend(ArrowBackend):
         if kwargs.pop("blockwise_sc", 0):
             raise ValueError("blockwise_sc: the sparse leaf already "
                              "streams; caches are O(n * nS) only")
+        if kwargs.get("iterative_root", 0):
+            raise NotImplementedError(
+                "the sparse backend's iterative root is not ported yet "
+                "(ROADMAP.md §1, item 16: the sparse backend under the "
+                "solve modes)")
         self.cg_iters = cg_iters
         if cg_tol == 0.0:
             cg_tol = 1e-12 if factor_dtype == torch.float64 else 1e-7
         self.cg_tol = cg_tol
         super().__init__(lp, factor_dtype=factor_dtype, **kwargs)
+
+    def solve_reduced_bicgstab(self, fac, rhs, max_iters=8, tol=1e-10):
+        raise NotImplementedError(
+            "outer BiCGStab over the sparse backend is not ported yet "
+            "(ROADMAP.md §1, item 16: the sparse backend under the solve "
+            "modes)")
 
     def _init_leaves(self):
         """ELL operators, each built once in the sliced layout

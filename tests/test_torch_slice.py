@@ -120,7 +120,7 @@ def test_facade_rejects_unported_input():
         PIPSIPMppTorchInterface(lp, Options(hierarchical=True),
                                 device="cpu")
     with pytest.raises(NotImplementedError):
-        PIPSIPMppTorchInterface(lp, Options(outer_bicgstab=True),
+        PIPSIPMppTorchInterface(lp, Options(banded_leaf=True),
                                 device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card: nothing falls back to the CPU
