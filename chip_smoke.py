@@ -50,6 +50,17 @@ read just after (the ELL kernel's also per operator and width):
     dual ones through the whole postsolve, its complementarity products
     held to 1e-3) on the same LP cut to 12 blocks, and the LDL and potf2
     kernels checked at its leaf and root shapes;
+  - the entry points (`cli_phase`): the gmspips CLI on the 96-block energy
+    LP's block files (`--check`, then `97 stem stepLp scaleGeo presolve
+    f.opt`, f32, to HiGHS within 1e-3) and on the T = 24 energy LP's MPS
+    file with `--auto-blocks 24 printsol` (f32 leaves, the wide root in
+    f64; the JAX package's structure, to HiGHS within 1e-3), the same
+    dissected LP through the facade in f64 (potf2 at its ~6.5k-wide root
+    blocks; to HiGHS within 1e-6, its recovered x to the rows and bounds),
+    then the LDL kernel at the dissected LP's leaves and at its root's
+    width (13k, which the JAX package's f32 path factors) and potf2 at its
+    root blocks (against cholesky_ex, and bit for bit against
+    the plain version on the leading columns);
   - the solve modes (`solve_modes_phase`): the energy LP at 96 blocks
     through the whole pipeline with each mode read from a reference .opt
     file (OUTER_SOLVE 2 in f64 and f32, PRECONDITION_SPARSE 1 and
@@ -76,16 +87,22 @@ Needs one CUDA device; imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from functools import lru_cache, partial
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from pips_ipmpp_tpu_torch import (Options, PIPSIPMppTorchInterface,
@@ -121,10 +138,17 @@ LDL_SHAPES = [(64, 256, 256), (512, 128, 128), (64, 1024, 1024),
 # of 1701
 SWEEP_SHAPES = [(64, 256, 256), (1, 192, 64), (2, 2, 2), (1, 3, 1),
                 (64, 1024, 1024), (2, 2048, 2048)]
-# the plain sweep version is profiled up to this edge; above it, hundreds
-# of small operations per call (~100 s of the script's time at 1024 and
-# 2048), it is timed by its one checking call
-SWEEP_PROFILE_PLAIN_MAX = 256
+# every plain version is timed by its checking call between CUDA events
+# (`plain_wall_ms`), and profiled (device time over its repetitions and a
+# warm-up) where that many checking calls fit in this budget: `plain_ms`
+# is the profiled time, else the checking call's (`plain_by` says which).
+# The big plain versions run thousands of small operations per call:
+# profiling the sweep's at 1024 and 2048 took ~100 s of the script
+PLAIN_PROFILE_BUDGET_MS = 2000.0
+# the library call's back-to-back loop (`library_loop_ms`) runs about this
+# many milliseconds, 10 to 200 calls (200 calls of the big shapes' library
+# calls took ~20 s of the script)
+LIBRARY_LOOP_BUDGET_MS = 1000.0
 # (batch, edge) of the f64 two-level root's Cholesky blocks (S11 and the
 # dual Schur complement) that the potf2 kernel factors: the flagship's and
 # the big leaf's (n0 = 64, nD = 128), the same at the batch of 8, the
@@ -133,9 +157,6 @@ SWEEP_PROFILE_PLAIN_MAX = 256
 # 32-column panels: nb + 1, 2 nb + 3, 193 at a batch of 2, and 300
 POTF2_SHAPES = [(1, 64), (1, 128), (8, 64), (8, 128), (1, 16), (1, 14),
                 (1, 11), (1, 33), (1, 67), (2, 193), (1, 300)]
-# the plain potf2 version is profiled up to this edge; above it, thousands
-# of small operations per call, it is timed by its one checking call
-POTF2_PROFILE_PLAIN_MAX = 128
 # the JAX package's real-world configuration (bench.py:290-370,
 # tests/test_realworld.py:117-131): a 102k-variable energy dispatch LP
 # (96 blocks of 1062 columns, 150 + 550 rows, n0 = 550, 384 linking rows)
@@ -176,6 +197,36 @@ GATHERS = {
 SPARSE = dict(N=8, n=8192, mE=4096, mI=4096, nnz_per_row=10, n0=16, m0E=4,
               m0I=4, mEl=4, mIl=4)
 SPARSE_ORACLE = -27135.692927917404
+# the entry points' phase (`cli_phase`): the energy LP at the full
+# per-period width over T = 24 periods, written as MPS for `--mps F
+# --auto-blocks 24` (the MPS reader builds a dense host LP, ~3.5 GB
+# here); its HiGHS f64 objective (scipy 1.17.0, io/energy.highs_oracle)
+# and the JAX package's structure_report of its dissection
+# (core/dissect.auto_structure after io/mps.read_mps, on the CPU)
+CLI_T = 24
+CLI_ENERGY_ORACLE = 134197.21758345905
+CLI_STRUCTURE = dict(num_blocks=24, block_vars=994, block_eq=195,
+                     block_ineq=784, first_vars=6509, linking_eq=2758,
+                     linking_ineq=0, dense_kkt_entries=677977444,
+                     arrow_leaf_entries=23002584)
+# the .opt file of the block-file run: ENERGY_OPTIONS' solver settings in
+# the reference's names (the scaler and presolve come as CLI flags)
+CLI_OPT = ("MAX_ITERATIONS 300 int\nGONDZIO_MAX_CORRECTORS 1 int\n"
+           "REFINEMENT_STEPS 2 int\n")
+CLI_RESID = 1e-5        # tests/test_realworld.py:74-77, rows and bounds
+# potf2's plain version grows as n^2 small operations (12.0 s at 550):
+# at the dissected root's blocks (~6.5k) it would take half an hour.
+# There the kernel is held to cholesky_ex within CLI_POTF2_RTOL (max |L -
+# L_lib| / max |L_lib|), and bit for bit to the plain version on its
+# leading CLI_POTF2_PREFIX columns (dpotf2's order makes them depend on
+# the leading block alone; 8 of the kernel's 32-column panels)
+CLI_POTF2_RTOL = 1e-10
+CLI_POTF2_PREFIX = 256
+# the plain LDL version takes one sweep of the trailing matrix per column
+# (13k launches at the dissected root): above this edge the check's f64
+# reference and plain f32 version are the kernel's blocked algorithm in
+# torch operations (`ldl_inverse_factors_blocked_ref`)
+LDL_PLAIN_BLOCKED_ABOVE = 2048
 # the sweep solve's LP (two_scenario_lp below) and its analytic optimum
 SWEEP_OPTIMUM = 7.0
 OBJ_RTOL = 1e-3      # the JAX package's f32-vs-f64 bound (test_pallas.py:28)
@@ -245,19 +296,37 @@ def loop_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def timings(kernel, plain, library, reps, plain_reps):
+def timed(fn):
+    """`fn()` and its milliseconds between CUDA events (one call, host
+    dispatch included)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def timings(kernel, plain, library, reps, plain_reps, check_ms):
     """Device and wall (CUDA events around one call, host dispatch
     included) milliseconds of the kernel, its plain version and, where
     there is one, the library call computing the same function (also over
-    200 back-to-back calls: `library_loop_ms`)."""
+    back-to-back calls filling LIBRARY_LOOP_BUDGET_MS: `library_loop_ms`).
+    The plain version's wall time is its checking call's, `check_ms`; its
+    `plain_ms` as PLAIN_PROFILE_BUDGET_MS says."""
+    profile = check_ms * (plain_reps + 1) <= PLAIN_PROFILE_BUDGET_MS
     out = dict(ms=device_ms(kernel, reps), wall_ms=cuda_ms(kernel, reps),
-               plain_ms=device_ms(plain, plain_reps),
-               plain_wall_ms=cuda_ms(plain, plain_reps),
+               plain_ms=device_ms(plain, plain_reps) if profile
+               else check_ms, plain_by="profile" if profile
+               else "checking call", plain_wall_ms=check_ms,
                library_ms=None, library_wall_ms=None, library_loop_ms=None)
     if library is not None:
+        wall = cuda_ms(library, reps)
+        n = int(min(200, max(10, LIBRARY_LOOP_BUDGET_MS / max(wall, 1e-3))))
         out.update(library_ms=device_ms(library, reps),
-                   library_wall_ms=cuda_ms(library, reps),
-                   library_loop_ms=loop_ms(library, 200))
+                   library_wall_ms=wall, library_loop_ms=loop_ms(library, n))
     return out
 
 
@@ -334,11 +403,12 @@ def check_ldl_kernel(shapes=LDL_SHAPES, tag="ldl_check"):
     for B, a, n_pos in shapes:
         A = ldl_input(B, a, n_pos, gen)
         A32 = A.float().contiguous()
-        Xr, dr = ldl.ldl_inverse_factors_ref(A)            # f64 reference
+        plain = (ldl.ldl_inverse_factors_ref if a <= LDL_PLAIN_BLOCKED_ABOVE
+                 else ldl.ldl_inverse_factors_blocked_ref)
+        Xr, dr = plain(A)                                   # f64 reference
         ref_inv = ldl.inverse_from_factors(Xr, dr)
         Xk, dk = ldl.ldl_inverse_factors(A32)
-        torch.cuda.synchronize()
-        Xp, dp = ldl.ldl_inverse_factors_ref(A32)           # plain f32
+        (Xp, dp), check_ms = timed(lambda: plain(A32))      # plain f32
         err_k, abs_k = rel_err(ldl.inverse_from_factors(Xk.double(),
                                                         dk.double()), ref_inv)
         err_p, _ = rel_err(ldl.inverse_from_factors(Xp.double(),
@@ -356,16 +426,15 @@ def check_ldl_kernel(shapes=LDL_SHAPES, tag="ldl_check"):
                 return torch.linalg.solve_triangular(L, eye, upper=False)
 
         times = timings(lambda: ldl.ldl_inverse_factors(A32),
-                        lambda: ldl.ldl_inverse_factors_ref(A32), library,
-                        10, 3)
+                        lambda: plain(A32), library, 10, 3, check_ms)
         # LDL^T (a^3/3 flops) + the unit-lower inverse (a^3/3)
         bound_ms, bound_by = bound((2 * B * a * a + B * a) * 4,
                                    B * 2 * a ** 3 / 3, torch.float32)
-        row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
-                   plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
-                   pivot_signs_equal=signs, inertia_ok=ok, **times,
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   nb=lib.ldl_inverse_nb(a),
+        row = dict(shape=[B, a, a], n_pos=n_pos, plain=plain.__name__,
+                   kernel_rel_err=err_k, plain_f32_rel_err=err_p,
+                   kernel_abs_err=abs_k, pivot_signs_equal=signs,
+                   inertia_ok=ok, **times, bound_ms=bound_ms,
+                   bound_by=bound_by, nb=lib.ldl_inverse_nb(a),
                    cuda_launches_per_call=lib.ldl_inverse_launches(a))
         print(tag, json.dumps(row), flush=True)
         require(err_k <= 4.0 * err_p + 1e-6,
@@ -388,38 +457,20 @@ def check_potf2_kernel(shapes=POTF2_SHAPES, tag="potf2_check"):
     events over 50 back-to-back calls) is the time the kernels line gives:
     the profiler's device time of the earlier one-CTA kernel read 0.448
     and 0.0448 ms at [1,128,128] in two runs on the same card, while one
-    call between CUDA events took 0.48 ms in both.  Above an edge of
-    POTF2_PROFILE_PLAIN_MAX the plain version, thousands of small
-    operations per call, is timed by its one checking call between CUDA
-    events (`plain_wall_ms`) and not profiled (`plain_ms` None)."""
+    call between CUDA events took 0.48 ms in both."""
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     rows = []
     for B, n in shapes:
         A = ldl_input(B, n, n, gen)
         Lk, ik = potf2.potf2(A)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        Lp, ip = potf2.cholesky_potf2_ref(A)
-        end.record()
-        end.synchronize()
+        (Lp, ip), check_ms = timed(lambda: potf2.cholesky_potf2_ref(A))
         diff = float((Lk - Lp).abs().amax())
         scale = float(Lp.abs().amax())
         backward = float((Lk @ Lk.mT - A).abs().amax() / A.abs().amax())
-        if n <= POTF2_PROFILE_PLAIN_MAX:
-            times = timings(lambda: potf2.potf2(A),
-                            lambda: potf2.cholesky_potf2_ref(A),
-                            lambda: torch.linalg.cholesky_ex(A), 10, 1)
-        else:
-            lib = lambda: torch.linalg.cholesky_ex(A)      # noqa: E731
-            times = dict(ms=device_ms(lambda: potf2.potf2(A), 10),
-                         wall_ms=cuda_ms(lambda: potf2.potf2(A), 10),
-                         plain_ms=None,
-                         plain_wall_ms=start.elapsed_time(end),
-                         library_ms=device_ms(lib, 10),
-                         library_wall_ms=cuda_ms(lib, 10),
-                         library_loop_ms=loop_ms(lib, 200))
+        times = timings(lambda: potf2.potf2(A),
+                        lambda: potf2.cholesky_potf2_ref(A),
+                        lambda: torch.linalg.cholesky_ex(A), 10, 1,
+                        check_ms)
         times["loop_ms"] = loop_ms(lambda: potf2.potf2(A), 50)
         # A in, L out (n^2 doubles each) and n^3/3 flops per matrix
         bound_ms, bound_by = bound(2 * B * n * n * 8 + B * 4,
@@ -523,8 +574,8 @@ def check_ell_kernel(slp):
             X = torch.randn(op.N, op.n, c, generator=gen, dtype=op.val.dtype,
                             device=DEVICE)
             Yk = spmv.ell_spmm(op, X, **epi)
-            torch.cuda.synchronize()
-            Yp = spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **epi)
+            Yp, check_ms = timed(lambda: spmv.ell_spmm_ref(
+                op.ell.val, op.ell.col, X, **epi))
             scale = float(Yp.abs().amax())
             err = float((Yk - Yp).abs().amax())
             row = dict(case=label, op=op.name,
@@ -549,7 +600,7 @@ def check_ell_kernel(slp):
             row.update(timings(
                 lambda: spmv.ell_spmm(op, X, **epi),
                 lambda: spmv.ell_spmm_ref(op.ell.val, op.ell.col, X, **epi),
-                library, 20, 5))
+                library, 20, 5, check_ms))
             row["bound_ms"], row["bound_by"] = ell_bound(op, X, Yp, epi)
             print("ell_check", json.dumps(row), flush=True)
             require(err <= tol * scale,
@@ -573,10 +624,7 @@ def sweep_bound(B, a):
 def check_sweep_kernel():
     """The sweep kernel and its plain f32 version against an f64
     torch.linalg.inv: error <= 4 x the plain f32 error + 1e-6, and the
-    pivot signs of the quasidefinite inertia.  Above an edge of
-    SWEEP_PROFILE_PLAIN_MAX the plain version is timed by its one
-    checking call between CUDA events (`plain_wall_ms`) and not profiled
-    (`plain_ms` None)."""
+    pivot signs of the quasidefinite inertia."""
     lib = _build.load()
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     rows = []
@@ -585,28 +633,14 @@ def check_sweep_kernel():
         A32 = A.float().contiguous()
         ref_inv = torch.linalg.inv(A)
         Ik, dk = sweep.sweep_inverse(A32)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        Ip, _ = sweep.sweep_inverse_ref(A32)
-        end.record()
-        end.synchronize()
+        (Ip, _), check_ms = timed(lambda: sweep.sweep_inverse_ref(A32))
         err_k, abs_k = rel_err(Ik, ref_inv)
         err_p, _ = rel_err(Ip, ref_inv)
         ok = bool(ldl.inverse_ok(Ik, dk, n_pos))
         kernel = lambda: sweep.sweep_inverse(A32)           # noqa: E731
         lib_inv = lambda: torch.linalg.inv(A32)             # noqa: E731
-        if a <= SWEEP_PROFILE_PLAIN_MAX:
-            times = timings(kernel, lambda: sweep.sweep_inverse_ref(A32),
-                            lib_inv, 10, 3)
-        else:
-            times = dict(ms=device_ms(kernel, 10),
-                         wall_ms=cuda_ms(kernel, 10), plain_ms=None,
-                         plain_wall_ms=start.elapsed_time(end),
-                         library_ms=device_ms(lib_inv, 10),
-                         library_wall_ms=cuda_ms(lib_inv, 10),
-                         library_loop_ms=loop_ms(lib_inv, 200))
+        times = timings(kernel, lambda: sweep.sweep_inverse_ref(A32),
+                        lib_inv, 10, 3, check_ms)
         bound_ms, bound_by = sweep_bound(B, a)
         row = dict(shape=[B, a, a], n_pos=n_pos, kernel_rel_err=err_k,
                    plain_f32_rel_err=err_p, kernel_abs_err=abs_k,
@@ -631,8 +665,6 @@ def two_scenario_lp(dtype):
     columns and rows, optimum 7 at x0 = 2.  The JAX package's f32 sweep
     path reaches SUCCESSFUL_TERMINATION on it; on the flagship it does not
     (tests/test_sweep.py)."""
-    import numpy as np
-
     first = dict(c=np.array([1.0]), A=np.zeros((0, 1)), b=np.zeros(0),
                  C=np.zeros((0, 1)), iclow=np.zeros(0), clow=np.zeros(0),
                  icupp=np.zeros(0), cupp=np.zeros(0), ixlow=np.array([1.0]),
@@ -1013,18 +1045,32 @@ def graph_ms(solver, reps=3):
     return cuda_ms(fused.graph.replay, reps)
 
 
-def fused_host_calls(name):
-    """`profile_port.py --fused NAME` in a fresh process: its JSON line."""
+def fused_host_calls(names) -> dict:
+    """`profile_port.py --fused NAME --reps 1` for every name, each in a
+    fresh process (`host_launches`), all started at once and all ended
+    before this returns (so that no other timing shares the card with
+    them): {name: its host CUDA calls per solve}."""
     here = Path(__file__).resolve().parent
-    proc = subprocess.run(
+    procs = {name: subprocess.Popen(
         [sys.executable, str(here / "profile_port.py"), "--fused", name,
-         "--reps", "1"], capture_output=True, text=True, timeout=600,
-        cwd=here)
-    require(proc.returncode == 0, f"profile_port.py --fused {name} failed:"
-                                  f"\n{proc.stdout[-2000:]}"
-                                  f"{proc.stderr[-4000:]}")
-    return json.loads(next(line for line in proc.stdout.splitlines()
-                           if line.startswith("{")))
+         "--reps", "1"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=here) for name in names}
+    calls = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            require(proc.returncode == 0, f"profile_port.py --fused {name} "
+                                          f"failed:\n{out[-2000:]}"
+                                          f"{err[-4000:]}")
+            calls[name] = json.loads(next(
+                line for line in out.splitlines()
+                if line.startswith("{")))["host_calls_per_solve"]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return calls
 
 
 def eager_fused(st: Setup):
@@ -1043,7 +1089,7 @@ def eager_fused(st: Setup):
                            objective=float(info["objective"]))
 
 
-def fused_twin(name, st: Setup, f64_objective, rtol, kernels):
+def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls):
     """The host loop and the fused loop on one solver and LP: the fused
     solve captured (first call), then replayed warm.  Each kernel of
     `kernels` must be launched into the graph; the fused solve must have
@@ -1051,7 +1097,8 @@ def fused_twin(name, st: Setup, f64_objective, rtol, kernels):
     and be within `rtol` of the f64 objective.  The twin is the host
     loop, or, where the options ask for carried residuals
     (`residual_update_every`, which the host loop does not read, as in
-    the JAX package), the same fused loop run eagerly."""
+    the JAX package), the same fused loop run eagerly.  `calls`: the
+    host CUDA calls of one warm solve (`fused_host_calls`)."""
     reset_counts()
     t0 = time.perf_counter()
     host = st.solver.solve(st.lp)
@@ -1068,7 +1115,6 @@ def fused_twin(name, st: Setup, f64_objective, rtol, kernels):
     warm = st.solver.solve_fused(st.lp)
     warm_s = time.perf_counter() - t0
     dev_ms = graph_ms(st.solver, reps=1)
-    calls = fused_host_calls(name)["host_calls_per_solve"]
     obj = st.objective(fused)
     rel_host = abs(fused.objective - twin.objective) / max(
         abs(twin.objective), 1.0)
@@ -1356,6 +1402,284 @@ def energy_phase():
     return rows
 
 
+# ---- the entry points: the gmspips CLI on block files and on MPS ------------
+def host_rss() -> int:
+    """The process's resident set in bytes (/proc/self/statm, read only)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class HostPeak:
+    """The resident set of the process when the block starts (`start`)
+    and its largest while the block runs (`peak`), sampled every 20 ms by
+    a thread that the block's end stops."""
+
+    def __enter__(self):
+        self.start = self.peak = host_rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, host_rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss())
+
+
+def run_cli(argv, codes=(0,)) -> dict:
+    """`pips_ipmpp_tpu_torch.cli.main(argv)` as a user runs it (on the
+    card, its default), its standard output captured: return code, the
+    lines it ends on and its wall seconds; a code outside `codes` fails."""
+    from pips_ipmpp_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    require(rc in codes, f"cli {argv}: exit code {rc}; {lines[-5:]}")
+    out = dict(rc=rc, seconds=seconds)
+    for key in ("auto-structure:", "optimal objective:", "solve time:",
+                "termination:", "OK:"):
+        out[key] = next((ln for ln in lines if ln.startswith(key)), None)
+    if out["optimal objective:"]:
+        out["objective"] = float(out["optimal objective:"].split(":")[1])
+        out["iterations"] = int(out["solve time:"].rsplit(":", 1)[1])
+    return out
+
+
+def primal_residuals(x, flat) -> dict:
+    """c'x and the primal residuals of x in the original order of the
+    flat LP `flat` (io/energy.to_scipy's matrices)."""
+    c, A_eq, b_eq, A_ub, lb_ub, ub_ub, lo, hi = flat
+    act = A_ub @ x
+    return dict(cx=float(c @ x),
+                eq_resid=float(abs(A_eq @ x - b_eq).max()),
+                ineq_violation=float(max((act - ub_ub).max(),
+                                         (lb_ub - act).max(), 0.0)),
+                bound_violation=float(max((lo - x).max(), (x - hi).max(),
+                                          0.0)))
+
+
+def check_potf2_large(shapes, tag="potf2_cli_check"):
+    """The potf2 kernel at root edges where its plain version would take
+    half an hour: held to `cholesky_ex` within CLI_POTF2_RTOL, every pivot
+    passing, and bit for bit to the plain version on the leading
+    CLI_POTF2_PREFIX columns (the plain version timed by that call
+    between CUDA events)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rows = []
+    m = CLI_POTF2_PREFIX
+    for B, n in shapes:
+        A = ldl_input(B, n, n, gen)
+        Lk, ik = potf2.potf2(A)
+        Ll, il = torch.linalg.cholesky_ex(A)
+        scale = float(Ll.abs().amax())
+        diff = float((Lk - Ll).abs().amax())
+        row = dict(shape=[B, n, n], library_max_abs_diff=diff,
+                   library_rel_diff=diff / scale,
+                   all_ok=bool((ik == 0).all() and (il == 0).all()),
+                   backward_err=float((Lk @ Lk.mT - A).abs().amax()
+                                      / A.abs().amax()))
+        (Lp, _), prefix_ms = timed(lambda: potf2.cholesky_potf2_ref(
+            A[:, :m, :m].contiguous()))
+        row.update(prefix=m, prefix_exact=bool(torch.equal(
+            Lk[:, :m, :m], Lp)), max_abs_err=float(
+            (Lk[:, :m, :m] - Lp).abs().amax()),
+            prefix_plain_wall_ms=prefix_ms)
+        kern = lambda: potf2.potf2(A)                      # noqa: E731
+        lib = lambda: torch.linalg.cholesky_ex(A)          # noqa: E731
+        bound_ms, bound_by = bound(2 * B * n * n * 8 + B * 4,
+                                   B * n ** 3 / 3, torch.float64)
+        row.update(ms=device_ms(kern, 5), wall_ms=cuda_ms(kern, 5),
+                   loop_ms=loop_ms(kern, 10), plain_ms=None,
+                   library_ms=device_ms(lib, 5),
+                   library_wall_ms=cuda_ms(lib, 5), bound_ms=bound_ms,
+                   bound_by=bound_by,
+                   cuda_launches_per_call=_build.load().potf2_launches(n))
+        print(tag, json.dumps(row), flush=True)
+        require(row["all_ok"] and row["library_rel_diff"] <= CLI_POTF2_RTOL
+                and row["prefix_exact"],
+                f"potf2 kernel at {[B, n, n]}: {row}")
+        del A, Lk, Ll
+        torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
+def cli_phase(energy_f32_iterations):
+    """The entry points users come in by, as they run them on the card
+    (f32 factors, the CLI's default there):
+      - cli_blocks: the 96-block energy LP written as block files, checked
+        (`--check`) and solved by `97 stem stepLp scaleGeo presolve
+        FILE.opt` (ENERGY_OPTIONS' settings), held to ENERGY_ORACLE;
+      - cli_mps: the T = 24 energy LP written as MPS and solved by `--mps
+        F --auto-blocks 24 printsol` (f32 leaves through the LDL kernel,
+        the 13k-wide root in f64 through potf2: `interface.ROOT_F32_MAX`):
+        the structure the JAX package finds, the objective to
+        CLI_ENERGY_ORACLE, the written solution's residuals in the MPS
+        order;
+      - cli_mps_f64: the same dissected LP through the facade with the
+        CLI's options and f64 factors (potf2 at the ~9.3k-wide root's
+        S11 and dual Schur complement), held to HiGHS within 1e-6 and its
+        recovered x to the rows and bounds;
+    then the LDL kernel at the dissected LP's leaf shape and at its root's
+    width, and the potf2 kernel at its root blocks.  Returns (rows, launch counts, LP
+    shapes)."""
+    from tempfile import TemporaryDirectory
+
+    from pips_ipmpp_tpu_torch import native
+    from pips_ipmpp_tpu_torch.core.dissect import (auto_structure,
+                                                   structure_report)
+    from pips_ipmpp_tpu_torch.core.options import StepMode
+    from pips_ipmpp_tpu_torch.io import energy
+    from pips_ipmpp_tpu_torch.io.blockfile import write_blocks
+    from pips_ipmpp_tpu_torch.io.mps import read_mps
+
+    t_phase = time.perf_counter()
+    native.build()
+    require(native.available(), f"native library: {native.build_error}")
+    total = dict.fromkeys(COUNTED, 0)
+    rows = {}
+    with TemporaryDirectory() as tmp:
+        # ---- block files, the 96-block energy LP ----
+        lp, gen_s = energy_lp(ENERGY["T"])
+        stem = f"{tmp}/energy"
+        t0 = time.perf_counter()
+        write_blocks(lp, stem)
+        write_s = time.perf_counter() - t0
+        n_blocks = lp.N + 1
+        del lp
+        opt = Path(tmp) / "energy.opt"
+        opt.write_text(CLI_OPT)
+        check = run_cli(["--check", stem])
+        require(check["OK:"] is not None, f"--check: {check}")
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as rss:
+            out, counts = drive("cli_blocks", partial(run_cli, [
+                str(n_blocks), stem, "stepLp", "scaleGeo", "presolve",
+                str(opt)]), ["ldl_inverse_f32"])
+        row = dict(case="cli_blocks", blocks=n_blocks - 1,
+                   generate_s=gen_s, write_s=write_s,
+                   check_s=check["seconds"], cli_s=out["seconds"],
+                   solve_line=out["solve time:"],
+                   iterations=out["iterations"],
+                   energy_f32_iterations=energy_f32_iterations,
+                   objective=out["objective"], oracle=ENERGY_ORACLE,
+                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+                   / abs(ENERGY_ORACLE), launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   host_rss_start_bytes=rss.start,
+                   host_rss_peak_bytes=rss.peak)
+        rows["cli_blocks"] = row
+        print("cli", json.dumps(row), flush=True)
+        require(row["oracle_rel"] <= OBJ_RTOL,
+                f"cli_blocks: objective off HiGHS: {row}")
+        for k, v in counts.items():
+            total[k] += v
+
+        # ---- MPS with automatic structure discovery, T = 24 ----
+        blocks, first, leq, liq, _ = energy.dispatch_blocks(
+            **dict(ENERGY, T=CLI_T))
+        flat = energy.to_scipy(blocks, first, leq, liq)
+        path = f"{tmp}/energy{CLI_T}.mps"
+        t0 = time.perf_counter()
+        energy.write_mps(path, blocks, first, leq, liq)
+        write_s = time.perf_counter() - t0
+        del blocks, first, leq, liq
+        torch.cuda.reset_peak_memory_stats()
+        with HostPeak() as rss:
+            out, counts = drive("cli_mps", partial(run_cli, [
+                "--mps", path, "--auto-blocks", str(CLI_T), "printsol"]),
+                ["ldl_inverse_f32", "potf2_f64"])
+        structure = ast.literal_eval(
+            out["auto-structure:"].split(":", 1)[1].strip())
+        x = np.load(f"{tmp}/energy{CLI_T}_solution.npz")["x"]
+        row = dict(case="cli_mps", T=CLI_T, write_s=write_s,
+                   mps_bytes=os.path.getsize(path), cli_s=out["seconds"],
+                   structure=structure, solve_line=out["solve time:"],
+                   iterations=out["iterations"], objective=out["objective"],
+                   oracle=CLI_ENERGY_ORACLE,
+                   oracle_rel=abs(out["objective"] - CLI_ENERGY_ORACLE)
+                   / abs(CLI_ENERGY_ORACLE), **primal_residuals(x, flat),
+                   launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   host_rss_start_bytes=rss.start,
+                   host_rss_peak_bytes=rss.peak)
+        rows["cli_mps"] = row
+        print("cli", json.dumps(row), flush=True)
+        require(structure == CLI_STRUCTURE,
+                f"cli_mps: structure {structure}, the JAX package's "
+                f"{CLI_STRUCTURE}")
+        require(row["oracle_rel"] <= OBJ_RTOL,
+                f"cli_mps: objective off HiGHS: {row}")
+        require(x.shape == flat[0].shape and bool(np.isfinite(x).all()),
+                f"cli_mps: solution of shape {x.shape}")
+        for k, v in counts.items():
+            total[k] += v
+
+        # ---- the same dissected LP, f64 factors ----
+        with HostPeak() as rss:
+            t0 = time.perf_counter()
+            dense = read_mps(path)
+            read_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            alp, dmap = auto_structure(dense, CLI_T, device=DEVICE)
+            torch.cuda.synchronize()
+            dissect_s = time.perf_counter() - t0
+            del dense
+        host_start, host_peak = rss.start, rss.peak
+    require(structure_report(dmap, alp) == CLI_STRUCTURE,
+            f"cli_mps_f64: structure {structure_report(dmap, alp)}")
+    opts = Options(step_mode=StepMode.PRIMAL, factor_dtype="float64")
+    torch.cuda.reset_peak_memory_stats()
+
+    def solve():
+        iface = PIPSIPMppTorchInterface(alp, opts, device=DEVICE)
+        status = iface.run()
+        xf = iface.gatherPrimalSolution()
+        return dict(status=status, iterations=iface.n_iterations,
+                    objective=iface.getObjective(),
+                    phase_times=dict(iface.phase_times),
+                    x=dmap.recover_x(xf[:alp.n0],
+                                     xf[alp.n0:].reshape(alp.N, alp.n)))
+
+    out, counts = drive("cli_mps_f64", solve, ["potf2_f64"])
+    row = dict(case="cli_mps_f64", read_s=read_s, dissect_s=dissect_s,
+               host_rss_start_bytes=host_start,
+               host_rss_peak_bytes=host_peak, status=out["status"].name,
+               iterations=out["iterations"], objective=out["objective"],
+               oracle_rel=abs(out["objective"] - CLI_ENERGY_ORACLE)
+               / abs(CLI_ENERGY_ORACLE), phase_times=out["phase_times"],
+               **primal_residuals(out["x"], flat), launches=counts,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    rows["cli_mps_f64"] = row
+    print("cli", json.dumps(row), flush=True)
+    require(out["status"] == TerminationStatus.SUCCESSFUL_TERMINATION
+            and row["oracle_rel"] <= F64_ORACLE_RTOL,
+            f"cli_mps_f64: objective off HiGHS: {row}")
+    require(row["eq_resid"] < ENERGY_EQ_RESID
+            and row["ineq_violation"] <= CLI_RESID
+            and row["bound_violation"] <= CLI_RESID,
+            f"cli_mps_f64: recovered x off the rows or bounds: {row}")
+    for k, v in counts.items():
+        total[k] += v
+    shapes = energy_shapes(alp)
+    del alp
+    torch.cuda.empty_cache()
+    print("cli_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, launches=total,
+        shapes=shapes)), flush=True)
+    return rows, total, shapes
+
+
 # ---- the solve modes --------------------------------------------------------
 # the energy LP at full size under each mode, its .opt line in the
 # reference's names: (case, .opt line, factor dtype, kernels it launches)
@@ -1420,7 +1744,7 @@ def recorded(run):
         arrow_backend.SOLVE_RECORD = None
 
 
-def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls):
+def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
     """ArrowBackend's three other solve modes at full size: the energy LP
     through the facade's whole pipeline with each mode read from a
     reference .opt file (outer BiCGStab in f64 and f32, the iterative root
@@ -1500,7 +1824,8 @@ def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls):
         path, over = FUSED_PATHS[name]
         st = setup(P[path], **over)
         (counts, row), record = recorded(
-            lambda: fused_twin(name, st, flag_f64, rtol, [kernel]))
+            lambda: fused_twin(name, st, flag_f64, rtol, [kernel],
+                               host_calls[name]))
         for k, v in counts.items():
             total[k] += v
         calls = row["host_calls_per_solve"]
@@ -1574,8 +1899,6 @@ def dense_lp_phase():
     """The DenseLP happy path of the verification recipe on the card
     (DenseBackend, torch.linalg's Cholesky): x* = (0.5, 1), objective
     -2.5, with the card's default f32 factors and with f64."""
-    import numpy as np
-
     from pips_ipmpp_tpu_torch import DenseLP
 
     def f(v):
@@ -1620,6 +1943,13 @@ def dense_path(name, f32_run, f64_run, n_vars, kernel):
 
 
 def main():
+    t_main = time.perf_counter()
+
+    def clock(after):
+        """The script's seconds so far, on a line of their own."""
+        print("clock", json.dumps(dict(after=after, seconds=(
+            time.perf_counter() - t_main))), flush=True)
+
     # ---- 1. device ----
     require(torch.cuda.is_available(), "no CUDA device")
     card = subprocess.run(
@@ -1647,6 +1977,7 @@ def main():
     ell_rows = check_ell_kernel(slp)
     sweep_rows = check_sweep_kernel()
     potf2_rows = check_potf2_kernel()
+    clock("kernel checks")
 
     total = dict.fromkeys(COUNTED, 0)
 
@@ -1704,8 +2035,13 @@ def main():
             f"sweep solve objective {sweep_out['objective']} is not the "
             f"optimum {SWEEP_OPTIMUM}")
 
+    clock("main paths")
+
     # ---- 9. the fused loop: each path as one captured graph, against its
-    #         host loop and the f64 objective ----
+    #         host loop and the f64 objective; every fused path's host
+    #         CUDA calls first (the solve modes' too), in fresh processes
+    #         at once ----
+    host_calls = fused_host_calls(list(FUSED_PATHS))
     fused_rows = []
     for name, f64_obj, kernels in (
             ("flagship", flag_f64, ["ldl_inverse_f32"]),
@@ -1714,7 +2050,8 @@ def main():
             ("flagship_update_every_4", flag_f64, ["ldl_inverse_f32"])):
         path, over = FUSED_PATHS[name]
         st = setup(P[path], **over)
-        counts, row = fused_twin(name, st, f64_obj, OBJ_RTOL, kernels)
+        counts, row = fused_twin(name, st, f64_obj, OBJ_RTOL, kernels,
+                                 host_calls[name])
         add(counts)
         fused_rows.append(row)
         if name == "flagship":
@@ -1731,6 +2068,7 @@ def main():
 
     # ---- 9c. the LDL kernel at the batches' leaf and root shapes ----
     ldl_rows += check_ldl_kernel(BATCH_LDL_SHAPES, "ldl_batch_check")
+    clock("fused loops")
 
     # ---- 10. the golden instances, f64, both loops: the root through the
     #          potf2 kernel, also inside every captured graph ----
@@ -1743,6 +2081,7 @@ def main():
             f"golden: the root's potf2 kernel was not launched "
             f"({golden['launches']}, captured {golden['captured_launches']})")
     add(golden["launches"])
+    clock("golden")
 
     # ---- 11. the facade's full pipeline at full size: the energy LP
     #          through presolve, scaling, the solve (f64 factors: potf2
@@ -1756,16 +2095,30 @@ def main():
     potf2_rows += check_potf2_kernel(
         [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
         "potf2_energy_check")
+    clock("energy")
+
+    # ---- 11a. the entry points: the CLI on the 96-block LP's block
+    #           files and on the T = 24 LP's MPS with --auto-blocks (f32
+    #           leaves, LDL kernel; the wide root in f64, potf2), the
+    #           dissected LP in f64 (potf2 at its root);
+    #           the kernels at the dissected LP's shapes ----
+    _, counts, shapes = cli_phase(energy["energy_f32"]["iterations"])
+    add(counts)
+    ldl_rows += check_ldl_kernel([(B, a, p) for B, a, p in shapes["ldl"]],
+                                 "ldl_cli_check")
+    potf2_rows += check_potf2_large([tuple(x) for x in shapes["potf2"]])
+    clock("entry points")
 
     # ---- 11b. the solve modes: the energy LP under outer BiCGStab, the
     #           iterative root and the blockwise Schur complement, and the
     #           fused flagship under them; potf2 at the root's panels ----
     _, counts = solve_modes_phase(
         energy["energy_f64"]["peak_memory_bytes"], flag_f64,
-        fused_rows[0]["host_calls_per_solve"])
+        fused_rows[0]["host_calls_per_solve"], host_calls)
     add(counts)
     potf2_rows += check_potf2_kernel(POTF2_PANEL_SHAPES,
                                      "potf2_panels_check")
+    clock("solve modes")
 
     # ---- 12. the golden instances through the facade with presolve,
     #          and the DenseLP happy path ----
@@ -1773,6 +2126,7 @@ def main():
     golden_presolved_phase()
     dense_lp_phase()
     add(read_counts())
+    clock("golden presolved, DenseLP")
 
     # ---- 13. the kernels line ----
     leaf = ldl_rows[0]

@@ -58,8 +58,16 @@ class DenseLP:
     xupp: torch.Tensor     # [n]
 
     @property
+    def n(self) -> int:
+        return self.c.shape[-1]
+
+    @property
     def mE(self) -> int:
         return self.b.shape[-1]
+
+    @property
+    def mI(self) -> int:
+        return self.clow.shape[-1]
 
     @property
     def dtype(self) -> torch.dtype:

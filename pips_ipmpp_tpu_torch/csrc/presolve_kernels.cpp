@@ -205,6 +205,7 @@ int64_t drop_tiny_impact(double* M, int64_t batch, int64_t rows,
   return dropped;
 }
 
-int32_t pips_native_abi_version() { return 2; }
+// 3: the MPS reader (mps_reader.cpp) joined the library
+int32_t pips_native_abi_version() { return 3; }
 
 }  // extern "C"

@@ -51,6 +51,23 @@ def resolve_factor_dtype(opts: Options, device) -> torch.dtype:
         else torch.float64
 
 
+# The widest root (n0 + m0E + m0I + mEl + mIl) that f32 factors leave to
+# the LDL kernel, its widest width under test before the dissected LPs.
+# A wider root is factored in f64 by the two-level Cholesky (potf2 on the
+# card) while the leaves stay f32: unpivoted f32 LDL of the dissected
+# energy LP's root (3,379 wide at 6 periods, 13,065 at 24) stalls the IPM
+# or not with its rounding order (ROADMAP.md §3, R2)
+ROOT_F32_MAX = 2048
+
+
+def root_factor_dtype(lp: ArrowheadLP, fd: torch.dtype) -> torch.dtype:
+    """The root's factor dtype for leaves factored in `fd`: f64 for an f32
+    root wider than ROOT_F32_MAX, else `fd`."""
+    ns = lp.n0 + lp.m0E + lp.m0I + lp.mEl + lp.mIl
+    return torch.float64 if fd == torch.float32 and ns > ROOT_F32_MAX \
+        else fd
+
+
 def _check_supported(opts: Options):
     unported = {
         "hierarchical": opts.hierarchical,
@@ -125,7 +142,8 @@ class PIPSIPMppTorchInterface:
                       iterative_root=o.iterative_root_panel,
                       sc_diag_dom_bound=o.sc_diag_dom_bound,
                       it_root_tol=o.it_root_tol,
-                      it_root_maxiter=o.it_root_maxiter)
+                      it_root_maxiter=o.it_root_maxiter,
+                      root_factor_dtype=root_factor_dtype(lp, fd))
         if isinstance(lp, SparseArrowheadLP):
             budget = self.options.sparse_densify_max_mb * 1024 * 1024
             if budget > 0 and dense_bytes(lp) <= budget:

@@ -1,6 +1,5 @@
 """Multi-period energy dispatch/expansion LP generator — counterpart of
-`pips_ipmpp_tpu/io/energy.py` (numpy and scipy only; `write_mps` waits for
-the port's MPS I/O).  The reference's
+`pips_ipmpp_tpu/io/energy.py` (numpy and scipy only).  The reference's
 workload class (README.md:1-5: SIMPLE/ELMOD energy-system LPs solved on
 JUWELS; "LPs with generalized arrowhead structure").
 
@@ -293,3 +292,71 @@ def highs_oracle(blocks, first, linking_eq, linking_ineq):
     if not res.success:
         raise RuntimeError(f"HiGHS oracle failed: {res.message}")
     return float(res.fun), res.x
+
+
+# ======================================================================
+# MPS writer (free format; round-trips through io/mps.read_mps)
+# ======================================================================
+
+def write_mps(path: str, blocks, first, linking_eq, linking_ineq,
+              name: str = "ENERGY"):
+    """Write the flat LP as a free-format MPS file (reference MpsReader
+    conventions: N/E/L/G rows, RANGES unused, BOUNDS UP/LO/FX)."""
+    import scipy.sparse as sp
+
+    c, A_eq, b_eq, A_ub, lb_ub, ub_ub, lo, hi = to_scipy(
+        blocks, first, linking_eq, linking_ineq)
+    ntot = c.size
+
+    cols = [f"X{j}" for j in range(ntot)]
+    erows = [f"E{i}" for i in range(A_eq.shape[0])]
+    irows = [f"I{i}" for i in range(A_ub.shape[0])]
+
+    def num(v):
+        return repr(float(v))
+
+    with open(path, "w") as f:
+        f.write(f"NAME {name}\nROWS\n N COST\n")
+        for r in erows:
+            f.write(f" E {r}\n")
+        for i, r in enumerate(irows):
+            up, lb = np.isfinite(ub_ub[i]), np.isfinite(lb_ub[i])
+            f.write(f" {'L' if up else 'G'} {r}\n")
+        f.write("COLUMNS\n")
+        Aeq_csc = A_eq.tocsc()
+        Aub_csc = A_ub.tocsc()
+        for j in range(ntot):
+            if c[j] != 0.0:
+                f.write(f" {cols[j]} COST {num(c[j])}\n")
+            s, e = Aeq_csc.indptr[j], Aeq_csc.indptr[j + 1]
+            for k in range(s, e):
+                f.write(f" {cols[j]} {erows[Aeq_csc.indices[k]]} "
+                        f"{num(Aeq_csc.data[k])}\n")
+            s, e = Aub_csc.indptr[j], Aub_csc.indptr[j + 1]
+            for k in range(s, e):
+                f.write(f" {cols[j]} {irows[Aub_csc.indices[k]]} "
+                        f"{num(Aub_csc.data[k])}\n")
+        f.write("RHS\n")
+        for i, v in enumerate(b_eq):
+            if v != 0.0:
+                f.write(f" RHS {erows[i]} {num(v)}\n")
+        for i in range(A_ub.shape[0]):
+            v = ub_ub[i] if np.isfinite(ub_ub[i]) else lb_ub[i]
+            if v != 0.0:
+                f.write(f" RHS {irows[i]} {num(v)}\n")
+        # ranged ineq rows (both sides finite) are not emitted by the
+        # generator; assert to keep the writer honest
+        assert not np.any(np.isfinite(ub_ub) & np.isfinite(lb_ub)), \
+            "ranged rows need a RANGES section"
+        f.write("BOUNDS\n")
+        for j in range(ntot):
+            if np.isfinite(lo[j]) and lo[j] == hi[j]:
+                f.write(f" FX BND {cols[j]} {num(lo[j])}\n")
+                continue
+            if np.isfinite(lo[j]) and lo[j] != 0.0:
+                f.write(f" LO BND {cols[j]} {num(lo[j])}\n")
+            elif not np.isfinite(lo[j]):
+                f.write(f" MI BND {cols[j]}\n")
+            if np.isfinite(hi[j]):
+                f.write(f" UP BND {cols[j]} {num(hi[j])}\n")
+        f.write("ENDATA\n")

@@ -313,7 +313,8 @@ class ArrowBackend:
                  it_root_tol: float = 1e-9,
                  it_root_maxiter: int = 200,
                  band_root_plan=None,
-                 sweep_kernel: Optional[bool] = None):
+                 sweep_kernel: Optional[bool] = None,
+                 root_factor_dtype: Optional[torch.dtype] = None):
         for name, val in (("dist_root", dist_root),
                           ("band_root_plan", band_root_plan)):
             if val:
@@ -356,6 +357,14 @@ class ArrowBackend:
             # the LDL kernel owns the whole root; the iterative root
             # replaces the dual Schur factorization of the two-level path
             self.ldl_kernel = False
+        # the root's factor dtype: the leaves' unless given.  A root in
+        # another dtype than the leaves takes the two-level Cholesky path
+        # (potf2 in f64 on the card) without explicit inverses
+        self.root_dtype = (factor_dtype if root_factor_dtype is None
+                           else root_factor_dtype)
+        same = self.root_dtype == factor_dtype
+        self.root_ldl = self.ldl_kernel and same
+        self.root_explicit_inverse = self.explicit_inverse and same
         self.bounds = Bounds(
             c=XVec(lp.c0, lp.cN),
             b=RVec(lp.b0, lp.bN, lp.bl),
@@ -538,7 +547,7 @@ class ArrowBackend:
     def _assemble_root(self, Dx, Ominv, delta_p, delta_d, L, Ninv, Einv,
                        Om, Ux, Um, contrib, leaf_ok):
         lp = self.lp
-        fd = self.factor_dtype
+        fd = self.root_dtype
         n0, m0E, m0I = lp.n0, lp.m0E, lp.m0I
         mEl, mIl = lp.mEl, lp.mIl
         dt = Einv.dtype
@@ -577,7 +586,7 @@ class ArrowBackend:
         common = dict(L=L, Ninv=Ninv, Einv=Einv, Om=Om, Ux=Ux, Um=Um,
                       Om0=Om0, Oml=Oml, delta_p=delta_p, delta_d=delta_d)
 
-        if self.ldl_kernel:
+        if self.root_ldl:
             # ---- single quasidefinite root factor+inverse (LDL kernel):
             # SPD primal block, negative-definite dual block -> unpivoted
             # LDL is stable (Vanderbei); the explicit inverse turns every
@@ -658,7 +667,7 @@ class ArrowBackend:
         chol2, ok2 = _root_cholesky(Sdual, nb)
         root_ok = ok1 & ok2
         S11inv = Sdinv = None
-        if self.explicit_inverse:
+        if self.root_explicit_inverse:
             S11inv = _bchol_solve(chol1, torch.eye(
                 n0, dtype=fd, device=dev).expand(chol1.shape))
             Sdinv = _bchol_solve(chol2, torch.eye(
@@ -745,7 +754,7 @@ class ArrowBackend:
 
     def _root_solve(self, fac: ArrowFactors, p, q):
         """Solve S [a; d] = [p; q] via the cached root factorization."""
-        fd = self.factor_dtype
+        fd = self.root_dtype
         dt = p.dtype
         if fac.Sinv is not None:
             u = _mv(fac.Sinv, torch.cat([p, q], dim=-1).to(fd)).to(dt)
@@ -763,7 +772,7 @@ class ArrowBackend:
             a = _bchol_solve(fac.chol1, p.to(fd)).to(dt) - _mv(fac.T, d)
             return a, d
         q2 = (q - _mv(fac.T.mT, p)).to(fd)
-        if self.explicit_inverse:
+        if self.root_explicit_inverse:
             d = -_mv(fac.Sdinv, q2).to(dt)
             a = _mv(fac.S11inv, p.to(fd)).to(dt) - _mv(fac.T, d)
         else:

@@ -1,15 +1,20 @@
-"""ctypes loader for the native presolve scans, `csrc/presolve_kernels.cpp`.
+"""ctypes loader for the native host code: the presolve scans,
+`csrc/presolve_kernels.cpp`, and the MPS reader, `csrc/mps_reader.cpp`.
 
-Counterpart of the presolve half of `pips_ipmpp_tpu/native/__init__.py`
-(its MPS reader waits for the port's MPS I/O).  The first call builds the
-source with g++ and the JAX package's flags (without `-fopenmp` where the
-compiler has no OpenMP runtime) into `build/` beside this file, as
-`libpips_native_<hash>.so`, named by the content hash of the source, the
-flags and the host CPU's feature flags, and loads it.  Every wrapper has
-the JAX package's pure-Python formulation as its plain version: the
-presolve passes use the library when it loads and that formulation
-otherwise (`get_lib()` is None).  `build()` raises on a failed build;
-`get_lib()` keeps the error in `build_error` and returns None.
+Counterpart of `pips_ipmpp_tpu/native/__init__.py`.  The first call
+builds both sources into one library with g++ and the JAX package's
+flags (without `-fopenmp` where the compiler has no OpenMP runtime) into
+`build/` beside this file, as `libpips_native_<hash>.so`, named by the
+content hash of the sources, the flags and the host CPU's feature flags,
+and loads it.  Every presolve wrapper has the JAX package's pure-Python
+formulation as its plain version, which the presolve passes take only on
+a host without a C++ compiler (`get_lib()` is None, `build_error` says
+why).  A source that fails to compile, or a library that fails to load,
+raises from every wrapper, the presolve passes' too: a fault in one
+source does not quietly move the other's passes to their plain versions.
+`mps_parse` has no plain version: it raises with `build_error` where
+there is no compiler (`io/mps.py` runs its Python parser only when
+asked, `native=False`).  `build()` raises whatever fails.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Optional
 import numpy as np
 
 _HERE = Path(__file__).resolve().parent
-_SOURCE = _HERE / "csrc" / "presolve_kernels.cpp"
+_SOURCES = (_HERE / "csrc" / "presolve_kernels.cpp",
+            _HERE / "csrc" / "mps_reader.cpp")
 _FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
           "-fopenmp", "-shared")
 # a compiler without OpenMP's runtime builds the source serially: its one
@@ -33,8 +39,13 @@ _FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 # are the same
 _SERIAL_FLAGS = tuple(f for f in _FLAGS if f != "-fopenmp")
 BUILD_DIR = _HERE / "build"
-ABI_VERSION = 2
+ABI_VERSION = 3
 build_error: Optional[str] = None
+
+
+class CompilerMissing(RuntimeError):
+    """No C++ compiler on the host: the presolve passes take their plain
+    versions."""
 
 
 def _cpu_features() -> bytes:
@@ -48,7 +59,9 @@ def _cpu_features() -> bytes:
 
 
 def library_path(flags=_FLAGS) -> Path:
-    h = hashlib.sha256(_SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in _SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(flags).encode())
     h.update(_cpu_features())
     return BUILD_DIR / f"libpips_native_{h.hexdigest()[:16]}.so"
@@ -63,14 +76,14 @@ def build() -> Path:
             return library_path(flags)
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native presolve scans need "
-                           "a C++ compiler")
+        raise CompilerMissing("g++ not found: the native presolve scans "
+                              "and the MPS reader need a C++ compiler")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     errors = []
     for flags in (_FLAGS, _SERIAL_FLAGS):
         out = library_path(flags)
         tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.so.tmp"
-        cmd = [cxx, *flags, "-o", str(tmp), str(_SOURCE)]
+        cmd = [cxx, *flags, "-o", str(tmp), *map(str, _SOURCES)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
         if proc.returncode == 0:
@@ -106,18 +119,44 @@ def _load() -> ctypes.CDLL:
                                          p_f64, i64]
     lib.row_activity_bounds.argtypes = [p_f64, i64, i64, p_f64, p_f64,
                                         p_f64, p_f64]
+
+    vp = ctypes.c_void_p
+    cp = ctypes.c_char_p
+    p_i8 = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    lib.mps_open.restype = vp
+    lib.mps_open.argtypes = [cp, ctypes.c_int32]
+    lib.mps_error.restype = cp
+    lib.mps_error.argtypes = [vp]
+    for fn in ("mps_n_rows", "mps_n_cols", "mps_nnz", "mps_n_free_rows",
+               "mps_n_bad_ranges"):
+        getattr(lib, fn).restype = i64
+        getattr(lib, fn).argtypes = [vp]
+    lib.mps_maximize.restype = ctypes.c_int32
+    lib.mps_maximize.argtypes = [vp]
+    lib.mps_obj_constant.restype = f64
+    lib.mps_obj_constant.argtypes = [vp]
+    lib.mps_fill.argtypes = [vp, p_i8, p_f64, p_u8, p_f64, p_i64, p_i64,
+                             p_f64, p_f64, p_f64, p_f64]
+    for fn in ("mps_row_name", "mps_col_name", "mps_free_row_name"):
+        getattr(lib, fn).restype = cp
+        getattr(lib, fn).argtypes = [vp, i64]
+    lib.mps_problem_name.restype = cp
+    lib.mps_problem_name.argtypes = [vp]
+    lib.mps_close.argtypes = [vp]
     return lib
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The loaded library (built if needed), or None if it cannot be; a
-    failure is not retried in this process."""
+    """The loaded library (built if needed), or None on a host without a
+    C++ compiler (not retried in this process); a failed build or load
+    raises."""
     global build_error
     if build_error is not None:
         return None
     try:
         return _load()
-    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+    except CompilerMissing as e:
         build_error = str(e)
         return None
 
@@ -244,3 +283,53 @@ def row_activity_bounds(M: np.ndarray, lo: np.ndarray, up: np.ndarray):
         return mn, mx
     lib.row_activity_bounds(M, rows, M.shape[1], lo, up, mn, mx)
     return mn, mx
+
+
+def mps_parse(path: str, fixed: bool = False) -> dict:
+    """Native MPS parse -> dict of arrays (the JAX package's
+    `native.mps_parse`).  Raises RuntimeError with `build_error` when the
+    library cannot be built, and ValueError on a malformed file (as the
+    Python parser does)."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"native MPS reader unavailable: {build_error}")
+    h = lib.mps_open(path.encode(), 1 if fixed else 0)
+    if not h:
+        raise ValueError(f"MPS parse failed: {path}")
+    try:
+        err = lib.mps_error(h)
+        if err:
+            raise ValueError(f"MPS parse failed: {err.decode()}")
+        m = lib.mps_n_rows(h)
+        n = lib.mps_n_cols(h)
+        nnz = lib.mps_nnz(h)
+        row_types = np.zeros(max(m, 1), np.int8)
+        rhs = np.zeros(max(m, 1), np.float64)
+        has_rng = np.zeros(max(m, 1), np.uint8)
+        rng = np.zeros(max(m, 1), np.float64)
+        coo_r = np.zeros(max(nnz, 1), np.int64)
+        coo_c = np.zeros(max(nnz, 1), np.int64)
+        coo_v = np.zeros(max(nnz, 1), np.float64)
+        obj = np.zeros(max(n, 1), np.float64)
+        lo = np.zeros(max(n, 1), np.float64)
+        up = np.zeros(max(n, 1), np.float64)
+        lib.mps_fill(h, row_types, rhs, has_rng, rng, coo_r, coo_c, coo_v,
+                     obj, lo, up)
+        return dict(
+            name=lib.mps_problem_name(h).decode(),
+            maximize=bool(lib.mps_maximize(h)),
+            obj_constant=float(lib.mps_obj_constant(h)),
+            row_types=row_types[:m], rhs=rhs[:m],
+            has_rng=has_rng[:m].astype(bool), rng=rng[:m],
+            coo_r=coo_r[:nnz], coo_c=coo_c[:nnz], coo_v=coo_v[:nnz],
+            obj=obj[:n], lo=lo[:n], up=up[:n],
+            row_names=[lib.mps_row_name(h, i).decode() for i in range(m)],
+            objective_row=lib.mps_row_name(h, m).decode(),
+            col_names=[lib.mps_col_name(h, j).decode() for j in range(n)],
+            free_rows=sorted(
+                lib.mps_free_row_name(h, i).decode()
+                for i in range(lib.mps_n_free_rows(h))),
+            n_bad_ranges=int(lib.mps_n_bad_ranges(h)),
+        )
+    finally:
+        lib.mps_close(h)

@@ -32,7 +32,12 @@ def test_import_leaves_jax_out():
             "          'pips_ipmpp_tpu_torch.presolve.passes',\n"
             "          'pips_ipmpp_tpu_torch.presolve.postsolve',\n"
             "          'pips_ipmpp_tpu_torch.presolve.presolver',\n"
-            "          'pips_ipmpp_tpu_torch.linalg.dense_backend'}\n"
+            "          'pips_ipmpp_tpu_torch.linalg.dense_backend',\n"
+            "          'pips_ipmpp_tpu_torch.io.mps',\n"
+            "          'pips_ipmpp_tpu_torch.io.callbacks',\n"
+            "          'pips_ipmpp_tpu_torch.io.gams',\n"
+            "          'pips_ipmpp_tpu_torch.core.dissect',\n"
+            "          'pips_ipmpp_tpu_torch.cli'}\n"
             "assert needed <= set(names), needed - set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pips_ipmpp_tpu' or "

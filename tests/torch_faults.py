@@ -15,6 +15,31 @@ against the JAX package), on the CPU unless an entry says the card.
     PYTHONPATH=. python tests/torch_faults.py f32triple SEEDS...
     PYTHONPATH=. python tests/torch_faults.py f2cg N K TRIPS...
     PYTHONPATH=. python tests/torch_faults.py f6cr [SEEDS...]
+    PYTHONPATH=. python tests/torch_faults.py climps T [jax|port]
+    PYTHONPATH=. python tests/torch_faults.py f32root T CASE
+
+f32root: the same MPS file as climps, read and dissected into T blocks
+(`auto_structure(read_mps(F), T)`) by one package and solved through its
+facade with the CLI's options and f32 factors (R2).  CASE is `jax` (its
+LDL's default panel), `jax_p32` (`PIPS_LDL_PANEL=32`), `port_root32` (the
+root in f32 as the JAX package factors it, `ROOT_F32_MAX` lifted; the
+plain unblocked LDL of the port's CPU path), `port_root32_blocked` (the
+same with the kernel's blocked order, nb = 64, at leaves and root),
+`port` (the facade as it stands: a root wider than `ROOT_F32_MAX` in
+f64) or `port_blocked` (that with the blocked leaves).  The IPM's lines,
+then one JSON line: status, iterations, objective, its distance to
+HiGHS, the root's width, seconds.  Each case in its own process (the panel is read at import).
+
+climps: the energy LP at the full per-period width
+(`dispatch_blocks(T, R=150, G=550, L=350, S=4, seed=5)`) written as MPS
+(`io/energy.write_mps`) and solved on the CPU, f64, by each package's CLI
+as `tests/test_realworld.py:57` runs it (`--mps F --auto-blocks T
+printsol`; the port's `main(argv, device="cpu")`), both packages unless
+one is named.  One JSON line per package: return code, status line,
+iterations, objective and its relative distance to HiGHS
+(`io/energy.highs_oracle`), c'x and the primal residuals of the written
+solution in the MPS order (max |A_eq x - b_eq|, the inequality and bound
+violations), seconds.  At T = 12 the dissected root is ~4.8k wide: minutes.
 
 f1: the f32 sweep solve of the two-scenario linking LP
 (`tests/fixtures.py::two_scenario_linking_lp`, `ArrowBackend(factor_dtype
@@ -983,7 +1008,129 @@ def f6cr(*seeds):
         print(json.dumps(row), flush=True)
 
 
+
+def climps(T, which="both"):
+    import contextlib
+    import io
+    import resource
+    import tempfile
+
+    _jax_cpu()
+    from pips_ipmpp_tpu.io.energy import (dispatch_blocks, highs_oracle,
+                                          to_scipy, write_mps)
+
+    T = int(T)
+    blocks, first, leq, liq, _ = dispatch_blocks(T=T, R=150, G=550, L=350,
+                                                 S=4, seed=5)
+    oracle, _ = highs_oracle(blocks, first, leq, liq)
+    c, A_eq, b_eq, A_ub, lb_ub, ub_ub, lo, hi = to_scipy(blocks, first, leq,
+                                                         liq)
+    with tempfile.TemporaryDirectory() as d:
+        mps = f"{d}/energy{T}.mps"
+        write_mps(mps, blocks, first, leq, liq)
+        for pkg in ("jax", "port"):
+            if which not in ("both", pkg):
+                continue
+            if pkg == "jax":
+                from pips_ipmpp_tpu.cli import main
+            else:
+                from pips_ipmpp_tpu_torch.cli import main as tmain
+                main = partial(tmain, device="cpu")
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = main(["--mps", mps, "--auto-blocks", str(T),
+                           "printsol"])
+            seconds = time.perf_counter() - t0
+            lines = buf.getvalue().splitlines()
+            pick = lambda key: next((ln for ln in lines  # noqa: E731
+                                     if ln.startswith(key)), None)
+            row = dict(package=pkg, T=T, rc=rc, seconds=seconds,
+                       structure=pick("auto-structure:"),
+                       objective_line=pick("optimal objective:"),
+                       solve_line=pick("solve time:") or pick("termination:"),
+                       highs=oracle, max_rss_gb=resource.getrusage(
+                           resource.RUSAGE_SELF).ru_maxrss / 1e6)
+            if rc == 0:
+                obj = float(row["objective_line"].split(":")[1])
+                sol = np.load(f"{d}/energy{T}_solution.npz")
+                x = sol["x"]
+                act = A_ub @ x
+                row.update(
+                    iterations=int(row["solve_line"].rsplit(":", 1)[1]),
+                    objective=obj, solution_objective=float(sol["objective"]),
+                    highs_rel=abs(obj - oracle) / abs(oracle),
+                    cx=float(c @ x),
+                    eq_resid=float(np.abs(A_eq @ x - b_eq).max()),
+                    ineq_violation=float(max(np.max(act - ub_ub),
+                                             np.max(lb_ub - act), 0.0)),
+                    bound_violation=float(max(np.max(lo - x),
+                                              np.max(x - hi), 0.0)))
+            print(json.dumps(row), flush=True)
+
+def f32root(T, case):
+    import os
+    import tempfile
+
+    if case == "jax_p32":
+        os.environ["PIPS_LDL_PANEL"] = "32"
+    _jax_cpu()
+    from pips_ipmpp_tpu.io.energy import (dispatch_blocks, highs_oracle,
+                                          write_mps)
+
+    T = int(T)
+    blocks, first, leq, liq, _ = dispatch_blocks(T=T, R=150, G=550, L=350,
+                                                 S=4, seed=5)
+    oracle, _ = highs_oracle(blocks, first, leq, liq)
+    with tempfile.TemporaryDirectory() as d:
+        mps = f"{d}/energy{T}.mps"
+        write_mps(mps, blocks, first, leq, liq)
+        del blocks, first, leq, liq
+        if case.startswith("jax"):
+            from pips_ipmpp_tpu.core.dissect import auto_structure
+            from pips_ipmpp_tpu.core.options import Options, StepMode
+            from pips_ipmpp_tpu.interface import PIPSIPMppTPUInterface
+            from pips_ipmpp_tpu.io.mps import read_mps
+            lp, _ = auto_structure(read_mps(mps), T)
+            make = partial(PIPSIPMppTPUInterface, lp)
+        else:
+            import torch
+
+            from pips_ipmpp_tpu_torch import interface
+            from pips_ipmpp_tpu_torch.core.dissect import auto_structure
+            from pips_ipmpp_tpu_torch.core.options import Options, StepMode
+            from pips_ipmpp_tpu_torch.io.mps import read_mps
+            from pips_ipmpp_tpu_torch.linalg import arrow_backend, ldl
+            torch.set_num_threads(4)
+            if case.startswith("port_root32"):
+                interface.ROOT_F32_MAX = float("inf")
+            if case.endswith("blocked"):
+                arrow_backend.ldl_inverse_factors = partial(
+                    ldl.ldl_inverse_factors_blocked_ref, nb=64)
+            lp, _ = auto_structure(read_mps(mps), T)
+            make = partial(interface.PIPSIPMppTorchInterface, lp,
+                           device="cpu")
+    # the CLI's options (its per-iteration lines show a stall as it goes)
+    opts = Options(print_level=10, step_mode=StepMode.PRIMAL,
+                   factor_dtype="float32")
+    t0 = time.perf_counter()
+    iface = make(opts)
+    status = iface.run()
+    obj = float(iface.getObjective())
+    print(json.dumps(dict(
+        case=case, T=T, status=status.name, iterations=iface.n_iterations,
+        objective=obj, highs=oracle, highs_rel=abs(obj - oracle) / abs(oracle),
+        root_width=lp.n0 + lp.m0E + lp.m0I + lp.mEl + lp.mIl,
+        seconds=time.perf_counter() - t0)), flush=True)
+
+
 if __name__ == "__main__":
+    if sys.argv[1] == "f32root":
+        f32root(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1] == "climps":
+        climps(*sys.argv[2:4])
+        sys.exit(0)
     if sys.argv[1] == "f1":
         f1(sys.argv[2])
     elif sys.argv[1] == "init":
