@@ -72,6 +72,18 @@ read just after (the ELL kernel's also per operator and width):
     Schur complement (f64, potf2 at S11 and at the panels [2, 64, 64]),
     each against its host loop with its Krylov loop a WHILE node of the
     graph; potf2 at the energy LP's panels [7, 64, 64] and [2, 64, 64];
+  - the hierarchy (`hier_phase`): the 96-block energy LP through the
+    facade with `hierarchical=True` (8 groups, 2 layers) after presolve
+    and geometric + equilibrium scaling, in f64 (potf2 at the groups'
+    local Schur complements, S11 and the dual Schur complement; HiGHS
+    within 1e-6) and f32 (the LDL kernel at the leaves; 1e-3), every
+    gather at 12 blocks; at 3 layers through the fused loop (one graph
+    launch per warm solve, the refinement a WHILE node, its host loop's
+    iterations); under outer BiCGStab; the reference's two hierarchical
+    golden instances through both loops (the JAX package's iterations
+    plus one); checkpoint/resume of the flat energy LP (the resumed
+    objective within 1e-6 of the uninterrupted one); both kernels at the
+    hierarchy's shapes;
   - the presolved GAMSsmall instances of
     tests/test_golden_reference.py:62-110 (every gather, complementarity
     held to 1e-3) and the DenseLP happy path through the facade.
@@ -109,12 +121,15 @@ from pips_ipmpp_tpu_torch import (Options, PIPSIPMppTorchInterface,
                                   TerminationStatus, _build)
 from pips_ipmpp_tpu_torch.core.lp import make_arrowhead_lp
 from pips_ipmpp_tpu_torch.core.options import PresolverType, ScalerType
-from pips_ipmpp_tpu_torch.interface import COMPLEMENTARITY_BOUND
+from pips_ipmpp_tpu_torch.interface import (COMPLEMENTARITY_BOUND,
+                                            _auto_groups)
 from pips_ipmpp_tpu_torch.io.synthetic import (random_arrowhead_lp,
                                                random_sparse_arrowhead_lp)
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
 from pips_ipmpp_tpu_torch.linalg import ldl, potf2, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+from pips_ipmpp_tpu_torch.linalg.hier_backend import (HierArrowBackend,
+                                                      build_hierarchical_lp)
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
                                                         batched_pcg)
 from pips_ipmpp_tpu_torch.scale import make_scaler
@@ -179,6 +194,9 @@ ENERGY_EQ_RESID = 1e-5      # tests/test_realworld.py:41
 # at 96 blocks on the card machine's host (PERF.md §5): they run on the
 # same LP cut to 12 blocks (ROADMAP.md §3, F5)
 ENERGY_GATHER_T = 12
+# ENERGY_OPTIONS' solver settings, its scaler and presolve apart
+ENERGY_SOLVER = {k: v for k, v in ENERGY_OPTIONS.items()
+                 if k not in ("scaler", "presolve")}
 # the gathers and the size of the original space each returns
 GATHERS = {
     "gatherPrimalSolution": "vars", "gatherDualSolutionEq": "eq",
@@ -729,8 +747,21 @@ def paths() -> dict:
         return (two_scenario_lp(f32), Options(refinement_steps=2),
                 partial(ArrowBackend, factor_dtype=f32, sweep_kernel=True))
 
+    def energy_hier3():
+        # the 96-block energy LP scaled as its facade runs scale it, in the
+        # hierarchical layout at 3 layers (8 groups, then 2), no presolve
+        lp = make_scaler(ENERGY_OPTIONS["scaler"]).scale(
+            energy_lp(ENERGY["T"])[0])
+        groups = _auto_groups(lp.N)
+        coarse = _auto_groups(groups)
+        hlp, meta = build_hierarchical_lp(
+            lp, groups, coarse_levels=(coarse,) if coarse > 1 else ())
+        return (hlp, Options(**ENERGY_SOLVER),
+                partial(HierArrowBackend, meta=meta, factor_dtype=f64))
+
     return {fn.__name__: fn
-            for fn in (flagship, bigleaf, sparse_f32, sparse_f64, sweep)}
+            for fn in (flagship, bigleaf, sparse_f32, sparse_f64, sweep,
+                       energy_hier3)}
 
 
 def facade_run(lp, opts: Options):
@@ -858,7 +889,10 @@ FUSED_PATHS = {"flagship": ("flagship", {}), "bigleaf": ("bigleaf", {}),
                "flagship_precond_blockwise_f64": (
                    "flagship", dict(factor_dtype="float64",
                                     iterative_root_panel=64,
-                                    sc_blockwise=64))}
+                                    sc_blockwise=64)),
+               # the hierarchy at 3 layers on the energy LP, f64
+               # (`hier_phase`)
+               "energy_hier3": ("energy_hier3", {})}
 
 
 # the fused batch (`IPMSolver.solve_fused_batch_async`): name -> (paths()
@@ -1848,6 +1882,309 @@ def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
     return rows, total
 
 
+# ---- the hierarchy: k-layer Schur over group-local linking rows ------------
+# the reference's hierarchical golden instances and the JAX package's
+# iterations with hierarchical=True (f64, default options; my CPU runs):
+# the bar is that count plus one, for rounding (the manifest records 5 and
+# 14, and the JAX package itself takes 7 on the first)
+HIER_GOLDEN = {"hier_approach_4blocks_2by2": 7,
+               "hier_approach_8blocks_2by3": 6}
+# the checkpoint run: stopped after this many iterations, saving every
+# HIER_CKPT_EVERY
+HIER_CKPT_STOP, HIER_CKPT_EVERY = 20, 10
+
+
+def hier_layout(meta) -> dict:
+    """The layout of a run: groups, local rows per group and the global
+    rows, and per coarse level its groups and rows per group."""
+    return dict(groups=meta.n_groups, blocks_per_group=meta.group_size,
+                local_eq=meta.mElL, local_ineq=meta.mIlL,
+                global_eq=meta.mElG, global_ineq=meta.mIlG,
+                levels=[dict(groups=C, eq=e, ineq=i)
+                        for C, e, i in meta.levels])
+
+
+def hier_shapes(lp, meta) -> dict:
+    """The kernels' shapes on the hierarchical path, from the layout the
+    run built on `lp` (the LP the transform took): the condensed leaves
+    [N, a, a] for the LDL kernel (f32 factors), and for potf2 (f64) the
+    groups' local Schur complements [G, mL], each coarse level's blocks
+    [C, k2], S11 [1, n0] and the dual Schur complement [1, nD] left after
+    the levels."""
+    a = lp.mE + lp.mI
+    nD = (lp.m0E + lp.m0I + meta.mElG + meta.mIlG
+          - sum(C * (e + i) for C, e, i in meta.levels))
+    potf2_shapes = ([(meta.n_groups, meta.mElL + meta.mIlL)]
+                    + [(C, e + i) for C, e, i in meta.levels]
+                    + [(1, lp.n0), (1, nD)])
+    return dict(ldl=[(lp.N, a, a)],
+                potf2=[s for s in potf2_shapes if s[1] > 0])
+
+
+def hier_run(lp, opts: Options, all_gathers=False):
+    """The facade's pipeline with `opts` (hierarchical) on an LP, timed by
+    a `ResourceMonitor` (device-synchronized phases), then the primal
+    gathers or, with `all_gathers`, every gather."""
+    from pips_ipmpp_tpu_torch.utils.monitor import ResourceMonitor
+
+    mon = ResourceMonitor()
+    iface = PIPSIPMppTorchInterface(lp, opts, device=DEVICE)
+    with mon.phase("run"):
+        status = iface.run()
+    require(status == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"hierarchical: {status.name} after {iface.n_iterations} "
+            f"iterations")
+    require(iface.backend_class is HierArrowBackend,
+            f"hierarchical: solved by {iface.backend_class.__name__}")
+    with mon.phase("primal_gathers"):
+        objective = iface.getObjective()
+        eq_resid = float(abs(iface.gatherPrimalResidsEQ()).max())
+    gather_s = {}
+    if all_gathers:
+        with mon.phase("all_gathers"):
+            gather_s = gather_all(iface, lp)
+    flat = iface._presolve_log.lp if iface._presolve_log else lp
+    return dict(status=status, iterations=iface.n_iterations,
+                objective=objective, eq_resid=eq_resid,
+                stats=iface._presolve_log.stats if iface._presolve_log
+                else None, phase_times=dict(iface.phase_times),
+                monitor=mon.report(), monitor_table=mon.pretty(),
+                layout=hier_layout(iface._hier_meta),
+                shapes=hier_shapes(flat, iface._hier_meta),
+                all_gathers_s=sum(gather_s.values()))
+
+
+def hier_phase(energy_f64, host_calls):
+    """The hierarchical approach at full size: the 96-block energy LP
+    through the facade with `hierarchical=True` (8 groups, 2 layers) after
+    presolve and geometric + equilibrium scaling, in f64 (potf2 at the
+    groups' local Schur complements, S11 and the dual Schur complement;
+    HiGHS within 1e-6, A x - b below 1e-5) and in f32 (the LDL kernel at
+    the leaves; 1e-3), every gather at 12 blocks; the 3-layer layout
+    through the fused loop (one captured graph per solve, the refinement
+    a WHILE node, the host loop's iterations); outer BiCGStab under the
+    hierarchy; the two hierarchical golden instances through both loops;
+    and checkpoint/resume on the flat energy LP (f64, host loop).
+    `energy_f64`: the flat f64 run's row, printed beside.  Returns
+    (launch counts, the kernels' shapes)."""
+    from tempfile import TemporaryDirectory
+
+    from pips_ipmpp_tpu_torch.io.blockfile import read_blocks
+    from pips_ipmpp_tpu_torch.ipm.checkpoint import (load_checkpoint,
+                                                     save_checkpoint)
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTED, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    lp, gen_s = energy_lp(ENERGY["T"])
+    shapes = {}
+    for name, extra, kernels, rtol in (
+            ("hier_f64", dict(factor_dtype="float64"), ["potf2_f64"],
+             F64_ORACLE_RTOL),
+            ("hier_f32", {}, ["ldl_inverse_f32"], OBJ_RTOL)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, counts = drive(name, partial(hier_run, lp, Options(
+            **ENERGY_OPTIONS, hierarchical=True, **extra)), kernels)
+        add(counts)
+        table = out.pop("monitor_table")
+        row = dict(case=name, iterations=out["iterations"],
+                   energy_f64_iterations=energy_f64["iterations"],
+                   status=out["status"].name, objective=out["objective"],
+                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+                   / abs(ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                   phase_times=out["phase_times"], monitor=out["monitor"],
+                   layout=out["layout"], shapes=out["shapes"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   energy_f64_peak_memory_bytes=energy_f64[
+                       "peak_memory_bytes"],
+                   launches=counts, total_s=time.perf_counter() - t0)
+        print("hierarchical", json.dumps(row), flush=True)
+        print(table, flush=True)
+        shapes[name] = out["shapes"]
+        require(out["stats"] == ENERGY_PRESOLVE_STATS,
+                f"{name}: presolve stats {out['stats']}")
+        require(row["oracle_rel"] <= rtol,
+                f"{name}: objective {out['objective']} off HiGHS by "
+                f"{row['oracle_rel']:.3e}")
+        if name == "hier_f64":
+            require(out["eq_resid"] < ENERGY_EQ_RESID,
+                    f"{name}: max |A x - b| = {out['eq_resid']:.3e}")
+
+    # every gather, the dual ones in user row order through the whole
+    # postsolve, at ENERGY_GATHER_T blocks (F5)
+    small, _ = energy_lp(ENERGY_GATHER_T)
+    out, counts = drive("hier_gathers", partial(
+        hier_run, small, Options(**ENERGY_OPTIONS, factor_dtype="float64",
+                                 hierarchical=True), all_gathers=True),
+        ["potf2_f64"])
+    add(counts)
+    out.pop("monitor_table")
+    print("hierarchical", json.dumps(dict(
+        case="hier_gathers", T=ENERGY_GATHER_T, iterations=out["iterations"],
+        objective=out["objective"], eq_resid=out["eq_resid"],
+        layout=out["layout"], phase_times=out["phase_times"],
+        all_gathers_s=out["all_gathers_s"], launches=counts)), flush=True)
+    require(out["eq_resid"] < ENERGY_EQ_RESID,
+            f"hier_gathers: max |A x - b| = {out['eq_resid']:.3e}")
+    del small
+
+    # outer BiCGStab under the hierarchy, no presolve, f64
+    no_presolve = dict(ENERGY_OPTIONS, presolve=PresolverType.NONE)
+    (out, counts), record = recorded(lambda: drive(
+        "hier_bicgstab_f64", partial(hier_run, lp, Options(
+            **no_presolve, factor_dtype="float64", hierarchical=True,
+            outer_bicgstab=True)), ["potf2_f64"]))
+    add(counts)
+    out.pop("monitor_table")
+    row = dict(case="hier_bicgstab_f64", iterations=out["iterations"],
+               objective=out["objective"],
+               oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+               / abs(ENERGY_ORACLE), phase_times=out["phase_times"],
+               layout=out["layout"], launches=counts, **mode_stats(record))
+    print("hierarchical", json.dumps(row), flush=True)
+    require(row.get("bicgstab", {}).get("solves", 0) > 0,
+            "hier_bicgstab_f64: no outer BiCGStab solve ran")
+    require(row["oracle_rel"] <= F64_ORACLE_RTOL,
+            f"hier_bicgstab_f64: off HiGHS by {row['oracle_rel']:.3e}")
+
+    # checkpoint/resume: the flat energy LP, scaled, f64 host loop,
+    # uninterrupted, stopped at HIER_CKPT_STOP, resumed from its file
+    slp = make_scaler(ENERGY_OPTIONS["scaler"]).scale(lp)
+    del lp
+    reset_counts()
+    ctor = partial(ArrowBackend, factor_dtype=torch.float64)
+    full = IPMSolver(ctor, Options(**ENERGY_SOLVER),
+                     device=DEVICE).solve(slp)
+    with TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "energy.npz")
+        stopped = IPMSolver(ctor, Options(**ENERGY_SOLVER).replace(
+            max_iterations=HIER_CKPT_STOP), device=DEVICE).solve(
+            slp, checkpoint_path=path, checkpoint_every=HIER_CKPT_EVERY)
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "again.npz"), stopped.iterate,
+                        HIER_CKPT_STOP, 1e-8, 1e-8)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        load_checkpoint(path, device=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = IPMSolver(ctor, Options(**ENERGY_SOLVER),
+                            device=DEVICE).solve(slp, checkpoint_path=path,
+                                                 resume=True)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    counts = read_counts()
+    add(counts)
+    rel = abs(resumed.objective - full.objective) / abs(full.objective)
+    print("hierarchical", json.dumps(dict(
+        case="checkpoint_f64", iterations=full.iterations,
+        stopped_iterations=stopped.iterations,
+        stopped_status=stopped.status.name,
+        resumed_status=resumed.status.name,
+        resumed_iterations=resumed.iterations, objective=full.objective,
+        resumed_objective=resumed.objective, resumed_rel=rel,
+        oracle_rel=abs(full.objective - ENERGY_ORACLE) / abs(ENERGY_ORACLE),
+        file_bytes=size, save_s=save_s, load_s=load_s,
+        resumed_solve_s=resumed_s, launches=counts)), flush=True)
+    require(full.status == resumed.status
+            == TerminationStatus.SUCCESSFUL_TERMINATION and rel <= 1e-6,
+            f"checkpoint_f64: resumed {resumed.status.name}, "
+            f"{rel:.3e} off the uninterrupted objective")
+    require(stopped.iterations == HIER_CKPT_STOP,
+            f"checkpoint_f64: stopped after {stopped.iterations}")
+    del slp, full, stopped, resumed
+    torch.cuda.empty_cache()
+
+    # the 3-layer layout through the fused loop against its host loop
+    st = setup(paths()["energy_hier3"])
+    (counts, frow), record = recorded(lambda: fused_twin(
+        "energy_hier3", st, ENERGY_ORACLE, F64_ORACLE_RTOL, ["potf2_f64"],
+        host_calls["energy_hier3"]))
+    add(counts)
+    warm = [frow["solve_s"]]
+    for _ in range(2):
+        t0 = time.perf_counter()
+        st.solver.solve_fused(st.lp)
+        warm.append(time.perf_counter() - t0)
+    layout = hier_layout(st.solver.be_ctor.keywords["meta"])
+    calls = host_calls["energy_hier3"]
+    line = dict(case="hier3_fused_f64", layout=layout,
+                iterations=frow["iterations"],
+                host_iterations=frow["host_iterations"],
+                capture_s=frow["first_solve_s"],
+                warm_solve_s=statistics.median(warm), warm_solves_s=warm,
+                graph_ms=frow["graph_ms"], host_calls_per_solve=calls,
+                refinement_loops_captured=sum(
+                    1 for k, v in record if k == "refinement" and v is None),
+                refinement_loops_host=sum(
+                    1 for k, v in record if k == "refinement"
+                    and v is not None))
+    print("hierarchical_fused", json.dumps(line), flush=True)
+    require(len(layout["levels"]) == 1,
+            f"hier3_fused_f64: layout {layout} has no coarse level")
+    require(calls["graph"] == 1,
+            f"hier3_fused_f64: {calls} host calls per warm solve")
+    require(line["refinement_loops_captured"] > 0,
+            "hier3_fused_f64: the refinement was not captured as a WHILE "
+            "node")
+    del st
+    torch.cuda.empty_cache()
+
+    # the hierarchical golden instances, f64, through both loops
+    data = Path(__file__).resolve().parent / "tests" / "data" / "gamssmall"
+    manifest = {e["name"]: e for e in
+                json.loads((data / "manifest.json").read_text())}
+    reset_counts()
+    for name, jax_iterations in HIER_GOLDEN.items():
+        e = manifest[name]
+        g = read_blocks(str(data / name), n_blocks=e["n_files"],
+                        device=DEVICE)
+        iface = PIPSIPMppTorchInterface(g, Options(
+            hierarchical=True, factor_dtype="float64"), device=DEVICE)
+        status = iface.run()
+        hlp, meta = build_hierarchical_lp(g, _auto_groups(g.N))
+        fused = IPMSolver(partial(HierArrowBackend, meta=meta,
+                                  factor_dtype=torch.float64), Options(),
+                          device=DEVICE).solve_fused(hlp)
+        row = dict(case="hier_golden", name=name, status=status.name,
+                   iterations=iface.n_iterations,
+                   objective=iface.getObjective(),
+                   fused_graph=fused.info["graph"],
+                   fused_status=fused.status.name,
+                   fused_iterations=fused.iterations,
+                   fused_objective=fused.objective,
+                   recorded_objective=e["objective"],
+                   recorded_iterations=e["iterations"],
+                   jax_iterations=jax_iterations,
+                   layout=hier_layout(meta))
+        print("hierarchical", json.dumps(row), flush=True)
+        for loop, st_, its, obj in (
+                ("host", status, row["iterations"], row["objective"]),
+                ("fused", fused.status, fused.iterations,
+                 fused.objective)):
+            require(st_ == TerminationStatus.SUCCESSFUL_TERMINATION
+                    and abs(obj - e["objective"]) < 1e-4
+                    and its <= jax_iterations + 1,
+                    f"{name} ({loop} loop): misses the bar {row}")
+        require(fused.info["graph"], f"{name}: the fused solve was not "
+                                     f"captured")
+    counts = read_counts()
+    require(counts["potf2_f64"] > 0, f"hier_golden: no potf2 launch "
+                                     f"({counts})")
+    add(counts)
+    print("hierarchical_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, generate_s=gen_s,
+        launches=total)), flush=True)
+    return total, shapes
+
+
 # the golden instances that tests/test_golden_reference.py:62-76 runs
 # through the facade with presolve and geometric + equilibrium scaling
 GOLDEN_PIPELINE = ("exampleAC_boundStrength", "hier_approach_8blocks_2by3",
@@ -2119,6 +2456,28 @@ def main():
     potf2_rows += check_potf2_kernel(POTF2_PANEL_SHAPES,
                                      "potf2_panels_check")
     clock("solve modes")
+
+    # ---- 11c. the hierarchy on the energy LP (f64: potf2 at the groups'
+    #           local Schur complements, S11 and the dual Schur complement;
+    #           f32: the LDL kernel at the leaves), 3 layers fused, outer
+    #           BiCGStab, the golden hier instances, checkpoint/resume; both
+    #           kernels at the hierarchy's shapes ----
+    counts, shapes = hier_phase(energy["energy_f64"], host_calls)
+    add(counts)
+    # the shapes an earlier check of this run took (the leaves and S11 are
+    # the flat energy LP's) are not checked again
+    done = {tuple(r["shape"]) for r in ldl_rows + potf2_rows}
+    ldl_all = [(B, a, a) for B, a, _ in shapes["hier_f32"]["ldl"]]
+    potf2_all = [(B, n, n) for B, n in shapes["hier_f64"]["potf2"]]
+    ldl_new = [s for s in ldl_all if s not in done]
+    potf2_new = [(B, n) for B, n, _ in potf2_all if (B, n, n) not in done]
+    print("hier_kernel_checks", json.dumps(dict(
+        ldl=ldl_all, potf2=potf2_all,
+        checked_earlier=[s for s in ldl_all + potf2_all if s in done])),
+        flush=True)
+    ldl_rows += check_ldl_kernel(ldl_new, "ldl_hier_check")
+    potf2_rows += check_potf2_kernel(potf2_new, "potf2_hier_check")
+    clock("hierarchical")
 
     # ---- 12. the golden instances through the facade with presolve,
     #          and the DenseLP happy path ----

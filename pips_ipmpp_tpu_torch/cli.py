@@ -16,9 +16,10 @@ validates block files (the reference's gmspipschk).
 
 Counterpart of `pips_ipmpp_tpu/cli.py`, with the same arguments, output
 lines and return codes.  The solve runs on the CUDA card: `main(argv,
-device="cpu")` runs it on the CPU instead.  `hierarchical`, `bandedLeaf`
-and `bandedRoot` are not ported yet: the facade refuses them and the CLI
-prints its refusal and returns 2."""
+device="cpu")` runs it on the CPU instead.  `hierarchical` solves on the
+hierarchical layout (`HierArrowBackend`).  `bandedLeaf` and `bandedRoot`
+are not ported yet: the facade refuses them and the CLI prints its
+refusal and returns 2."""
 from __future__ import annotations
 
 import sys

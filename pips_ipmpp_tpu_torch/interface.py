@@ -6,16 +6,20 @@ getObjective(); the gather* accessors.
 The facade takes a DenseLP, an ArrowheadLP or a SparseArrowheadLP.
 `run()` presolves an ArrowheadLP when asked (host numpy, `presolve/`),
 applies the chosen scaler, and solves: a DenseLP with `DenseBackend`, an
-ArrowheadLP with the Schur-complement `ArrowBackend`, and a sparse LP
-whose dense twin does not fit `Options.sparse_densify_max_mb` with the
-CG-leaf `SparseArrowBackend`.  The gathers report the original problem's
-space: they undo the scaling and, after presolve, postsolve the iterate.
+ArrowheadLP with the Schur-complement `ArrowBackend` (with
+`Options.hierarchical`, last, the hierarchical layout and
+`HierArrowBackend`), and a sparse LP whose dense twin does not fit
+`Options.sparse_densify_max_mb` with the CG-leaf `SparseArrowBackend`.
+The gathers report the original problem's space: they undo the scaling
+and, after presolve, postsolve the iterate; the linking rows come back in
+the user's order.
 The facade runs on the CUDA card unless the caller passes `device="cpu"`;
 the gathers read one host copy of the LP and one of the iterate.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import warnings
 from functools import partial
@@ -68,9 +72,18 @@ def root_factor_dtype(lp: ArrowheadLP, fd: torch.dtype) -> torch.dtype:
         else fd
 
 
+def _auto_groups(N: int) -> int:
+    """Largest divisor of N not exceeding sqrt(N) (reference
+    mapChildrenToNSubTrees picks ~sqrt(N) sub-roots, DistributedTree.h:166)."""
+    best = 1
+    for g in range(1, math.isqrt(N) + 1):
+        if N % g == 0:
+            best = g
+    return best
+
+
 def _check_supported(opts: Options):
     unported = {
-        "hierarchical": opts.hierarchical,
         "banded_leaf": opts.banded_leaf,
         "banded_root": opts.banded_root,
     }
@@ -113,6 +126,10 @@ class PIPSIPMppTorchInterface:
                             f"package solves DenseLP, ArrowheadLP and "
                             f"SparseArrowheadLP")
         self.options = options or Options()
+        if (isinstance(lp, ArrowheadLP) and self.options.hierarchical
+                and (self.options.banded_leaf or self.options.banded_root)):
+            raise ValueError("banded_leaf/banded_root are exclusive "
+                             "with hierarchical mode")
         _check_supported(self.options)
         self.device = torch.device(device)
         self.lp = lp.to(self.device)
@@ -122,6 +139,8 @@ class PIPSIPMppTorchInterface:
         self._presolve_log = None
         self._gather_cache: dict = {}
         self._host: Optional[dict] = None
+        self._hier_meta = None
+        self._orig_link_dims = None
 
         from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
         from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
@@ -154,8 +173,8 @@ class PIPSIPMppTorchInterface:
                 if modes:
                     raise NotImplementedError(
                         f"Options {', '.join(modes)} over the sparse "
-                        f"backend are not ported yet (ROADMAP.md §1, item "
-                        f"16: the sparse backend under the solve modes)")
+                        f"backend are not ported yet (ROADMAP.md §1: the "
+                        f"sparse backend under the solve modes)")
                 from pips_ipmpp_tpu_torch.linalg.sparse_backend import \
                     SparseArrowBackend
                 be_cls = SparseArrowBackend
@@ -168,8 +187,8 @@ class PIPSIPMppTorchInterface:
             torch.cuda.synchronize(self.device)
 
     def run(self) -> TerminationStatus:
-        """Presolve -> scale -> solve.  Per-phase wall times land in
-        `phase_times` (seconds)."""
+        """Presolve -> scale -> (hierarchical layout) -> solve.  Per-phase
+        wall times land in `phase_times` (seconds)."""
         self.phase_times = {}
         self.result = None
         self._presolve_log = None
@@ -201,11 +220,56 @@ class PIPSIPMppTorchInterface:
             lp = self._scaler.scale(lp)
             self._sync()
             self.phase_times["scale"] = time.perf_counter() - t0
+        self._hier_meta = self._orig_link_dims = None
+        if self.options.hierarchical and isinstance(lp, ArrowheadLP):
+            t0 = time.perf_counter()
+            lp = self._to_hierarchical(lp)
+            self._sync()
+            self.phase_times["hierarchical"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         self.result = self._solver.solve(lp)
         self._sync()
         self.phase_times["solve"] = time.perf_counter() - t0
         return self.result.status
+
+    def _to_hierarchical(self, lp: ArrowheadLP) -> ArrowheadLP:
+        """The hierarchical k-layer Schur (reference
+        switchToHierarchicalData, PIPSIPMppInterface.cpp:81-89): the
+        linking rows permuted into the hierarchical layout, last, so every
+        other stage sees the flat layout, and the solver rebuilt on
+        `HierArrowBackend`.  Layers = 2 + the coarse chain: each coarser
+        level groups the previous one (divisor near its sqrt), and the
+        chain stops early where a level would hold every group."""
+        from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver
+        from pips_ipmpp_tpu_torch.linalg.hier_backend import (
+            HierArrowBackend, build_hierarchical_lp)
+
+        o = self.options
+        if o.hierarchical_layers < 2:
+            raise ValueError(
+                f"hierarchical_layers={o.hierarchical_layers}: must be >= 2")
+        ng = o.hierarchical_num_groups or _auto_groups(lp.N)
+        chain = []
+        c = ng
+        for _ in range(o.hierarchical_layers - 2):
+            c = _auto_groups(c)
+            if c <= 1:
+                break
+            chain.append(c)
+        self._orig_link_dims = (lp.mEl, lp.mIl)
+        lp, self._hier_meta = build_hierarchical_lp(
+            lp, ng, coarse_levels=tuple(chain))
+        # as in the JAX package, the hierarchy takes the factor dtype
+        # alone: the solve modes' backend options (sc_blockwise,
+        # iterative_root_panel and its settings) are ArrowBackend's, and
+        # are ignored here; outer_bicgstab runs in HierArrowBackend's
+        # state layout
+        self.backend_class = HierArrowBackend
+        self._solver = IPMSolver(
+            partial(HierArrowBackend, meta=self._hier_meta,
+                    factor_dtype=resolve_factor_dtype(o, self.device)),
+            o, device=self.device)
+        return lp
 
     # ------------------------------------------------------------------
     def _require_result(self):
@@ -408,10 +472,14 @@ class PIPSIPMppTorchInterface:
         return self._arrow_Cx(*self._split_x(x))
 
     def _unpermute_link(self, vec: np.ndarray, which: str) -> np.ndarray:
-        """Map link vectors back to user row order: the identity, since no
-        layout of this package permutes the linking rows (the hierarchical
-        layout, which does in the JAX package, is not ported)."""
-        return vec
+        """Map hierarchical-layout link vectors back to user row order."""
+        if self._hier_meta is None:
+            return vec
+        from pips_ipmpp_tpu_torch.linalg.hier_backend import \
+            unpermute_link_one
+        size = (self._orig_link_dims[0] if which == "E"
+                else self._orig_link_dims[1])
+        return unpermute_link_one(self._hier_meta, vec, which, size)
 
     def _gather_row_dual(self, vec, which: str, factors) -> np.ndarray:
         """Unpermute, then unscale, then flatten."""

@@ -164,7 +164,7 @@ class InputTree:
         if bucketed:
             raise NotImplementedError(
                 "InputTree.build(bucketed=True) is not ported yet "
-                "(ROADMAP.md §1, item 4: the bucketed heterogeneous path)")
+                "(ROADMAP.md §1: Bucket, the bucketed heterogeneous path)")
         blocks, first, linking_eq, linking_ineq = self._gather(_dense_mat)
         self.refine_placement = None
         if max_block_vars is not None:

@@ -1,10 +1,13 @@
 """Synthetic arrowhead LP generators (benchmarks, smoke runs, tests).
 
-Counterparts of `random_arrowhead_lp` and `random_sparse_arrowhead_lp` in
+Counterparts of `random_arrowhead_lp`, `random_hier_arrowhead_lp` (with
+`refit_feasible`) and `random_sparse_arrowhead_lp` in
 `pips_ipmpp_tpu/io/synthetic.py`: the same `np.random.default_rng(seed)`
-draws in the same order, so one seed gives bit-identical LP data in both
-packages.
+draws in the same order and the same host arithmetic, so one seed gives
+bit-identical LP data in both packages.
 """
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -78,6 +81,97 @@ def random_arrowhead_lp(seed, N=4, n=6, mE=3, mI=4, n0=3, m0E=2, m0I=2,
         linking_ineq={"iclow": iclowl, "clow": clowl,
                       "icupp": icuppl, "cupp": cuppl},
         dtype=dtype, device=device)
+
+
+def random_hier_arrowhead_lp(seed, N=8, n_groups=2, n=5, mE=2, mI=3,
+                             n0=2, m0E=1, m0I=2, loc_eq=2, loc_iq=1,
+                             glob_eq=1, glob_iq=1, dtype=torch.float64,
+                             device="cpu") -> ArrowheadLP:
+    """Arrowhead LP with group-LOCAL linking-row structure (the reference's
+    2-link/k-link pattern, DistributedProblem::activateLinkStructure
+    Exploitation): each group of N/n_groups blocks owns `loc_eq`/`loc_iq`
+    linking rows supported only on its blocks, plus a few global rows.
+    Rows are interleaved (shuffled) to exercise locality detection."""
+    rng = np.random.default_rng(seed)
+    gs = N // n_groups
+    mEl = n_groups * loc_eq + glob_eq
+    mIl = n_groups * loc_iq + glob_iq
+
+    # owners: group id per row or -1 for global, then shuffle
+    ownE = np.concatenate([np.repeat(np.arange(n_groups), loc_eq),
+                           np.full(glob_eq, -1)])
+    ownI = np.concatenate([np.repeat(np.arange(n_groups), loc_iq),
+                           np.full(glob_iq, -1)])
+    rng.shuffle(ownE)
+    rng.shuffle(ownI)
+
+    base = random_arrowhead_lp(seed + 1, N=N, n=n, mE=mE, mI=mI, n0=n0,
+                               m0E=m0E, m0I=m0I, mEl=mEl, mIl=mIl,
+                               dtype=dtype)
+    # rebuild F/G with locality masks and consistent rhs/bounds
+    F = base.F.numpy().copy()
+    Gm = base.G.numpy().copy()
+    for r, g in enumerate(ownE):
+        if g >= 0:
+            mask = np.ones(N, bool)
+            mask[g * gs:(g + 1) * gs] = False
+            F[mask, r, :] = 0.0
+    for r, g in enumerate(ownI):
+        if g >= 0:
+            mask = np.ones(N, bool)
+            mask[g * gs:(g + 1) * gs] = False
+            Gm[mask, r, :] = 0.0
+
+    return refit_feasible(base, F, Gm, rng, dtype).to(device)
+
+
+def refit_feasible(base: ArrowheadLP, F, Gm, rng, dtype=torch.float64
+                   ) -> ArrowheadLP:
+    """Rebuild rhs/bounds of `base` (on the CPU) so the LP with REPLACED
+    linking strips F/Gm (numpy) is feasible at a random interior point:
+    used after masking linking rows to craft locality structure."""
+    N, n = base.N, base.n
+    n0 = base.n0
+    x0 = rng.normal(size=n0) * 0.3
+    xi = rng.normal(size=(N, n)) * 0.3
+    host = {name: getattr(base, name).numpy()
+            for name in ("A", "B", "A0", "F0", "C0", "C", "D", "G0")}
+    # block eqs must stay consistent: recompute bN as well
+    bN = (np.einsum("imk,k->im", host["A"], x0)
+          + np.einsum("imn,in->im", host["B"], xi))
+    b0 = host["A0"] @ x0
+    bl = host["F0"] @ x0 + np.einsum("iln,in->l", F, xi)
+    Cx0 = host["C0"] @ x0
+    CxN = (np.einsum("imk,k->im", host["C"], x0)
+           + np.einsum("imn,in->im", host["D"], xi))
+    Gx = host["G0"] @ x0 + np.einsum("iln,in->l", Gm, xi)
+
+    def box(v, width=1.0):
+        lo = v - width * (0.5 + rng.random(np.shape(v)))
+        up = v + width * (0.5 + rng.random(np.shape(v)))
+        return lo, up
+
+    cl0, cu0 = box(Cx0)
+    clN, cuN = box(CxN)
+    cll, cul = box(Gx)
+    xl0, xu0 = box(x0)
+    xlN, xuN = box(xi)
+
+    def arr(v):
+        return torch.as_tensor(np.asarray(v, np.float64), dtype=dtype)
+
+    def ones(v):
+        return torch.ones(np.shape(v), dtype=dtype)
+
+    return dataclasses.replace(
+        base,
+        F=arr(F), G=arr(Gm), b0=arr(b0), bN=arr(bN), bl=arr(bl),
+        iclow0=ones(cl0), clow0=arr(cl0), icupp0=ones(cu0), cupp0=arr(cu0),
+        iclowN=ones(clN), clowN=arr(clN), icuppN=ones(cuN), cuppN=arr(cuN),
+        iclowl=ones(cll), clowl=arr(cll), icuppl=ones(cul), cuppl=arr(cul),
+        ixlow0=ones(xl0), xlow0=arr(xl0), ixupp0=ones(xu0), xupp0=arr(xu0),
+        ixlowN=ones(xlN), xlowN=arr(xlN), ixuppN=ones(xuN), xuppN=arr(xuN),
+    )
 
 
 def random_sparse_arrowhead_lp(seed, N=4, n=4096, mE=2048, mI=2048,

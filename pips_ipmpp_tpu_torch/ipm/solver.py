@@ -21,9 +21,11 @@ solve over a leading batch axis (one graph per backend shape and B).
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from pips_ipmpp_tpu_torch.core.lp import stack_lps
@@ -33,6 +35,8 @@ from pips_ipmpp_tpu_torch.core.status import TerminationStatus
 from pips_ipmpp_tpu_torch.core.spaces import tmap
 from pips_ipmpp_tpu_torch.ipm import control
 from pips_ipmpp_tpu_torch.ipm import formulation as F
+from pips_ipmpp_tpu_torch.ipm.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
 from pips_ipmpp_tpu_torch.ipm.device_loop import (decode_status,
                                                   initial_point,
                                                   solve_on_device)
@@ -114,7 +118,14 @@ class IPMSolver:
         self._graphs: dict = {}     # backend signature -> FusedGraph
         pin_float32_precision()
 
-    def solve(self, lp, callback=None) -> SolveResult:
+    def solve(self, lp, callback=None, checkpoint_path: str | None = None,
+              checkpoint_every: int = 10,
+              resume: bool = False) -> SolveResult:
+        """The host loop.  With `checkpoint_path`, the iterate is saved
+        there every `checkpoint_every` iterations (`ipm/checkpoint.py`, one
+        device->host copy per save); with `resume` and an existing file,
+        the solve starts from the saved iterate, its iteration count and
+        its regularization shifts."""
         opts = self.opts
         pin_float32_precision()
         mu_tol, res_tol = opts.tolerances()
@@ -123,16 +134,24 @@ class IPMSolver:
 
         strat = make_regularization(opts)
         rstate = strat.init_state(lp.dtype, self.device)
-        it, datanorm = initial_point(be, opts)
-        datanorm = float(datanorm)
+        k0 = 0
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            it, k0, dp_c, dd_c, _ = load_checkpoint(
+                checkpoint_path, dtype=WORKING_DTYPE, device=self.device)
+            rstate = (torch.full_like(rstate[0], dp_c),
+                      torch.full_like(rstate[1], dd_c), rstate[2])
+            datanorm = float(be.datanorm())
+        else:
+            it, datanorm = initial_point(be, opts)
+            datanorm = float(datanorm)
 
         history: list[IterationInfo] = []
         status = TerminationStatus.MAX_ITS_EXCEEDED
         best_mu = float("inf")
         stall = 0
-        n_steps = 0
+        n_steps = k0   # completed IPM steps (the reported iteration count)
 
-        for k in range(opts.max_iterations):
+        for k in range(k0, opts.max_iterations):
             mu_v, res_v, gap_v, obj_v = _evaluate(be, it)
 
             if opts.print_level >= 10:
@@ -146,7 +165,7 @@ class IPMSolver:
             # divergence is RELATIVE to the best mu seen, only after the
             # iteration has had a chance to settle (reference :164-169)
             if not math.isfinite(mu_v) or (
-                    k >= 10 and mu_v > opts.divergence_mu
+                    k - k0 >= 10 and mu_v > opts.divergence_mu
                     and mu_v > 1e4 * best_mu):
                 status = TerminationStatus.INFEASIBLE
                 break
@@ -182,6 +201,9 @@ class IPMSolver:
 
             it = new_it
             n_steps += 1
+            if (checkpoint_path and checkpoint_every > 0
+                    and (k + 1) % checkpoint_every == 0):
+                save_checkpoint(checkpoint_path, it, k + 1, dp, dd)
             if opts.record_history:
                 _, a_p, a_d, sigma, n_gondzio = stats_h
                 history.append(IterationInfo(
@@ -240,17 +262,19 @@ class IPMSolver:
         synchronization.  On CUDA one graph is captured per backend shape
         and B, as in `solve_fused_async`; on the CPU the loop runs
         eagerly.  Sparse LPs raise: their batch is not ported
-        (ROADMAP.md §1, item 14); so do the outer BiCGStab and the
-        backend's blockwise and iterative-root modes (item 15)."""
+        (ROADMAP.md §1: the sparse batch); so do the outer BiCGStab and
+        the backend's blockwise and iterative-root modes (ROADMAP.md §1:
+        the fused batch under the solve modes), and the hierarchical
+        backend (ROADMAP.md §1: the fused batch under the hierarchy)."""
         lps = list(lps)
         if any(isinstance(lp, SparseArrowheadLP) for lp in lps):
             raise NotImplementedError(
-                "a batch of sparse LPs is not ported yet (ROADMAP.md §1, "
-                "item 14: the sparse batch)")
+                "a batch of sparse LPs is not ported yet (ROADMAP.md §1: "
+                "the sparse batch)")
         if self.opts.outer_bicgstab:
             raise NotImplementedError(
                 "outer_bicgstab over a batch is not ported yet (ROADMAP.md "
-                "§1, item 15: the fused batch under the solve modes)")
+                "§1: the fused batch under the solve modes)")
         pin_float32_precision()
         return self._run_fused(stack_lps(
             [lp.to(self.device).astype(WORKING_DTYPE) for lp in lps]))
@@ -296,10 +320,14 @@ class IPMSolver:
 
 def _backend_state(obj, path, out, seen):
     """Append (path, leaf) for every tensor and plain value `obj` holds,
-    walking attributes, dataclasses, sequences and dicts."""
+    walking attributes, dataclasses, sequences and dicts (a numpy array
+    is a plain value: its shape, dtype and bytes)."""
     if isinstance(obj, torch.Tensor) or obj is None or isinstance(
             obj, (bool, int, float, str, torch.dtype, torch.device)):
         out.append((path, obj))
+        return
+    if isinstance(obj, np.ndarray):
+        out.append((path, (obj.shape, obj.dtype.str, obj.tobytes())))
         return
     if id(obj) in seen:
         return

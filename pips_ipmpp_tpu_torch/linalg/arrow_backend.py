@@ -149,9 +149,10 @@ def _root_cholesky(S, nb: int = 0):
 
 # Opt-in record of the iterative solves: a list to append to, or None.
 # Each outer BiCGStab solve appends ("bicgstab", stats), each root CG solve
-# ("cg", stats) and each iterative-root factorization ("panels",
-# dict(count=k, dropped=share)), every value a device tensor (no
-# read-back).  Inside a graph capture the entry is (kind, None): the loop
+# ("cg", stats), each iterative-root factorization ("panels",
+# dict(count=k, dropped=share)) and each refinement of the hierarchical
+# backend ("refinement", dict(iterations=, residual=)), every value a
+# device tensor (no read-back).  Inside a graph capture the entry is (kind, None): the loop
 # became a WHILE node, whose values exist only at replay.  `chip_smoke.py`
 # reads it.
 SOLVE_RECORD: Optional[list] = None
@@ -323,8 +324,8 @@ class ArrowBackend:
         if lp.batch_shape and (blockwise_sc or iterative_root):
             raise NotImplementedError(
                 "blockwise_sc and iterative_root over a stack of LPs are "
-                "not ported yet (ROADMAP.md §1, item 15: the fused batch "
-                "under the solve modes)")
+                "not ported yet (ROADMAP.md §1: the fused batch under the "
+                "solve modes)")
         self.lp = lp
         self.batch_shape = lp.batch_shape
         self.factor_dtype = factor_dtype
@@ -898,8 +899,7 @@ class ArrowBackend:
         if self.batch_shape:
             raise NotImplementedError(
                 "outer BiCGStab over a stack of LPs is not ported yet "
-                "(ROADMAP.md §1, item 15: the fused batch under the solve "
-                "modes)")
+                "(ROADMAP.md §1: the fused batch under the solve modes)")
         lp = self.lp
         m0E, m0I, mEl, mE = lp.m0E, lp.m0I, lp.mEl, lp.mE
         b = (-rhs.rhat_x.first, -rhs.rhat_x.blocks,

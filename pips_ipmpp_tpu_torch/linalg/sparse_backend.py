@@ -119,7 +119,7 @@ class SparseArrowBackend(ArrowBackend):
         if kwargs.get("iterative_root", 0):
             raise NotImplementedError(
                 "the sparse backend's iterative root is not ported yet "
-                "(ROADMAP.md §1, item 16: the sparse backend under the "
+                "(ROADMAP.md §1: the sparse backend under the "
                 "solve modes)")
         self.cg_iters = cg_iters
         if cg_tol == 0.0:
@@ -130,7 +130,7 @@ class SparseArrowBackend(ArrowBackend):
     def solve_reduced_bicgstab(self, fac, rhs, max_iters=8, tol=1e-10):
         raise NotImplementedError(
             "outer BiCGStab over the sparse backend is not ported yet "
-            "(ROADMAP.md §1, item 16: the sparse backend under the solve "
+            "(ROADMAP.md §1: the sparse backend under the solve "
             "modes)")
 
     def _init_leaves(self):

@@ -2,7 +2,10 @@
 JAX ArrowBackend on one iterate: the f64 Cholesky path, with and without
 explicit inverses (rtol 1e-10), and the
 f32 LDL^T path with explicit and with factored leaf inverses (rtol 1e-4;
-the JAX LDL kernel runs in Pallas interpret mode)."""
+the JAX LDL kernel runs in Pallas interpret mode).  The JAX side runs
+under `jax.jit`, as its IPM runs it: eagerly it took most of this
+file's time (22 s for the f32 case)."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -60,10 +63,10 @@ def test_factorize_and_solve_match_jax(problem, mode):
                  factor_dtype=getattr(torch, np.dtype(fd).name), **kw)
     assert tbe.ldl_kernel == jbe.ldl_kernel
     assert tbe.factored_inverse == jbe.factored_inverse
-    jfac, jsol = _solve(JF, jbe, JF.Iterate(**{k: jspace(v) for k, v in
-                                               it.items()}),
-                        JF.Iterate(**{k: jspace(v) for k, v in d.items()}),
-                        jnp.asarray(0.3), 1e-8, steps)
+    jfac, jsol = jax.jit(lambda it_, d_: _solve(
+        JF, jbe, it_, d_, jnp.asarray(0.3), 1e-8, steps))(
+        JF.Iterate(**{k: jspace(v) for k, v in it.items()}),
+        JF.Iterate(**{k: jspace(v) for k, v in d.items()}))
     before = ldl.ldl_inverse_factors.launches
     tfac, tsol = _solve(TF, tbe,
                         bridge.iterate_from_numpy(it, device="cpu",
@@ -101,7 +104,8 @@ def test_root_escalation_recovers_wrong_inertia(problem):
     Dx.first = Dx.first - 50.0
     jDx.first = jDx.first - 50.0
     tfac = tbe.factorize(Dx, Ominv, 1e-8, 1e-8)
-    jfac = jbe.factorize(jDx, jOminv, 1e-8, 1e-8)
+    jfac = jax.jit(lambda a, b: jbe.factorize(a, b, 1e-8, 1e-8))(jDx,
+                                                                 jOminv)
     assert float(tfac.extra_root) > 0.0
     np.testing.assert_allclose(float(tfac.extra_root),
                                float(jfac.extra_root), rtol=1e-6)

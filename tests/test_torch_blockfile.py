@@ -69,6 +69,17 @@ def solver():
     return IPMSolver(ArrowBackend, Options(), device="cpu")
 
 
+_RUNS: dict = {}
+
+
+def run(name, loop):
+    """One solve of an instance by one loop ("solve" or "solve_fused"),
+    shared by the tests that read it (the CPU runs are deterministic)."""
+    if (name, loop) not in _RUNS:
+        _RUNS[name, loop] = getattr(solver(), loop)(load(name))
+    return _RUNS[name, loop]
+
+
 @pytest.mark.parametrize("name", ["exampleAC_boundStrength",
                                   "hier_approach_8blocks_2by3"])
 def test_read_blocks_matches_jax(name):
@@ -104,16 +115,16 @@ def test_write_blocks_round_trip(tmp_path, name):
 
 @pytest.mark.parametrize("name", list(BY_NAME))
 def test_golden_fused(name):
-    r = solver().solve_fused(load(name))
+    r = run(name, "solve_fused")
     assert r.info["graph"] is False
     accept(name, r.status, r.objective, r.iterations)
 
 
 @pytest.mark.parametrize("name", list(BY_NAME))
 def test_golden_host_loop(name):
-    host = solver().solve(load(name))
+    host = run(name, "solve")
     accept(name, host.status, host.objective, host.iterations)
-    fused = solver().solve_fused(load(name))
+    fused = run(name, "solve_fused")
     assert fused.status == host.status
     assert fused.iterations == host.iterations
     assert fused.objective == host.objective
@@ -127,7 +138,7 @@ def test_golden_matches_jax(name):
     from pips_ipmpp_tpu.linalg.arrow_backend import \
         ArrowBackend as JArrowBackend
 
-    host = solver().solve(load(name))
+    host = run(name, "solve")
     jres = JIPMSolver(JArrowBackend, JOptions()).solve(
         jax_read(os.path.join(DATA, name), n_blocks=BY_NAME[name]["n_files"]))
     assert host.status.name == jres.status.name

@@ -115,7 +115,31 @@ def test_cli_check_matches_jax(block_stem, capsys):
 def test_cli_refusals_return_2(block_stem, tmp_path, capsys, case):
     """Exits with code 2: a block file missing, `--auto-blocks` without a
     count (as the JAX CLI), and the facade's refusal of a mode not ported
-    yet."""
+    yet.  `hierarchical` is ported: it solves, with the JAX CLI's lines
+    (its log, iterations and objective; the time apart) and code 0."""
+    if case == "hierarchical":
+        argv = ["3", block_stem, "hierarchical"]
+        (wrc, want, _), (grc, got, gerr) = (_run(main, argv, capsys)
+                                            for main in (jmain, tmain))
+        assert grc == wrc == 0 and not gerr
+        assert _solved(got)[1] == _solved(want)[1]
+        assert _solved(got)[0] == pytest.approx(_solved(want)[0], rel=1e-9)
+
+        def log(lines):
+            """The iteration log as numbers: k, objective, mu, residual."""
+            return np.array([[float(v) for v in ln.split()[1::2]]
+                             for ln in lines if ln.startswith("iter")])
+        glog, wlog = log(got), log(want)
+        assert glog.shape == wlog.shape and glog.shape[0] > 1
+        np.testing.assert_allclose(glog[:, :3], wlog[:, :3], rtol=1e-8)
+        # the residual norms reach rounding level (~1e-12)
+        np.testing.assert_allclose(glog[:, 3], wlog[:, 3], rtol=1e-8,
+                                   atol=1e-10)
+        assert [ln for ln in got if not ln.startswith(
+            ("iter", "solve time:", "optimal objective:"))] == [
+            ln for ln in want if not ln.startswith(
+                ("iter", "solve time:", "optimal objective:"))]
+        return
     if case == "missing_block_file":
         argv = ["4", block_stem]
     elif case == "auto_blocks_no_k":

@@ -153,6 +153,7 @@ def test_sparse_factorize_matches_jax_with_capped_cg():
     `jnp.linalg.cholesky` factors (S + S')/2; the port factored the lower
     triangle of S (root factors 1.5e-3 and T 1.8e-2 apart), which at
     8 x 8192 took the f64 solve from 14 iterations to 29."""
+    import jax
     import jax.numpy as jnp
 
     from pips_ipmpp_tpu.core.spaces import RVec as JRVec
@@ -175,9 +176,10 @@ def test_sparse_factorize_matches_jax_with_capped_cg():
                              cg_iters=20).factorize(
         XVec(*map(torch.from_numpy, Dx)),
         RVec(*map(torch.from_numpy, Ominv)), 1e-10, 1e-10)
-    jfac = JSparse(jax_sparse_lp(0, **dims), cg_iters=20).factorize(
-        JXVec(*map(jnp.asarray, Dx)), JRVec(*map(jnp.asarray, Ominv)),
-        1e-10, 1e-10)
+    # the JAX side jitted, as its IPM runs it (eagerly: 17 s of CPU)
+    jbe = JSparse(jax_sparse_lp(0, **dims), cg_iters=20)
+    jfac = jax.jit(lambda Dx_, Om_: jbe.factorize(Dx_, Om_, 1e-10, 1e-10))(
+        JXVec(*map(jnp.asarray, Dx)), JRVec(*map(jnp.asarray, Ominv)))
     assert bool(fac.ok) and bool(jfac.ok)
     for name in ("Um", "chol1", "chol2", "T"):
         got, want = getattr(fac, name).numpy(), np.asarray(getattr(jfac,

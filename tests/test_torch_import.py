@@ -37,7 +37,10 @@ def test_import_leaves_jax_out():
             "          'pips_ipmpp_tpu_torch.io.callbacks',\n"
             "          'pips_ipmpp_tpu_torch.io.gams',\n"
             "          'pips_ipmpp_tpu_torch.core.dissect',\n"
-            "          'pips_ipmpp_tpu_torch.cli'}\n"
+            "          'pips_ipmpp_tpu_torch.cli',\n"
+            "          'pips_ipmpp_tpu_torch.ipm.checkpoint',\n"
+            "          'pips_ipmpp_tpu_torch.utils.monitor',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.hier_backend'}\n"
             "assert needed <= set(names), needed - set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pips_ipmpp_tpu' or "

@@ -286,7 +286,7 @@ def test_callback_tree_matches_jax(how):
 
 
 def test_callback_tree_refuses_bucketed():
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1: Bucket"):
         _callback_tree(callbacks).build(bucketed=True)
 
 

@@ -469,8 +469,16 @@ def test_troubles_hook_contract():
 @pytest.mark.parametrize("name", ["hierarchical", "banded_leaf",
                                   "banded_root"])
 def test_facade_still_refuses(name):
+    """The banded modes are not ported; the hierarchy is, and refuses a
+    banded mode beside it with the JAX facade's ValueError."""
     lp = random_arrowhead_lp(0, N=2, n=3, mE=1, mI=1, n0=2, m0E=1, m0I=1,
                              mEl=1, mIl=1)
+    if name == "hierarchical":
+        with pytest.raises(ValueError, match="exclusive with hierarchical"):
+            PIPSIPMppTorchInterface(lp, Options(hierarchical=True,
+                                                banded_root=True),
+                                    device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=name):
         PIPSIPMppTorchInterface(lp, Options(**{name: True}), device="cpu")
 
@@ -489,21 +497,21 @@ def test_batch_and_sparse_backend_refuse_modes(mode):
                                mEl=1, mIl=1) for s in (0, 1)]
     kw = dict(blockwise_sc=opts.sc_blockwise,
               iterative_root=opts.iterative_root_panel)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="the fused batch under the solve modes"):
         IPMSolver(partial(ArrowBackend, **kw), opts,
                   device="cpu").solve_fused_batch_async(lps)
     slp = random_sparse_arrowhead_lp(0, N=2, n=16, mE=8, mI=8,
                                      nnz_per_row=3, n0=2, m0E=1, m0I=1,
                                      mEl=1, mIl=1)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="the sparse backend under the solve modes"):
         PIPSIPMppTorchInterface(slp, opts.replace(sparse_densify_max_mb=0),
                                 device="cpu")
     if mode == "outer_bicgstab":
         be = SparseArrowBackend(slp)
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match="the sparse backend under the solve modes"):
             be.solve_reduced_bicgstab(None, None)
     elif mode == "iterative_root_panel":
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(NotImplementedError, match="the sparse backend under the solve modes"):
             SparseArrowBackend(slp, iterative_root=64)
 
 

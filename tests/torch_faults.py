@@ -17,6 +17,28 @@ against the JAX package), on the CPU unless an entry says the card.
     PYTHONPATH=. python tests/torch_faults.py f6cr [SEEDS...]
     PYTHONPATH=. python tests/torch_faults.py climps T [jax|port]
     PYTHONPATH=. python tests/torch_faults.py f32root T CASE
+    PYTHONPATH=. python tests/torch_faults.py hier T {f64,f32} [LAYERS] [presolve] [jax|port]
+    PYTHONPATH=. python tests/torch_faults.py hiernoise NAME {jax,port} [SEEDS...]
+
+hiernoise: f3noise through the facade with `hierarchical=True` (default
+options otherwise): every Cholesky input of the solve (the leaves, the
+groups' local Schur complements, S11 and the dual Schur complement)
+multiplied by 1 + 1e-16 E, E symmetric standard normal, per seed (default
+0-9), and seed -1 for the solve without noise.  The JAX package's noisy
+solves run with jit off (so that numpy draws fresh noise per call), its
+seed -1 as its facade runs it, jitted.  One JSON line per seed: status,
+iterations, objective.
+
+hier: the energy LP at T periods and full width (`dispatch_blocks(T,
+R=150, G=550, L=350, S=4, seed=5)`) through each package's facade on the
+CPU with `chip_smoke.ENERGY_OPTIONS`' scaler and solver settings
+(geometric + equilibrium scaling, max_iterations 300, one Gondzio
+corrector, refinement_steps 2), `hierarchical=True`,
+`hierarchical_layers=LAYERS` (default 2), the factor dtype named, and no
+presolve unless `presolve` is given; both packages unless one is named.
+One JSON line per package: status, iterations, objective and its
+relative distance to HiGHS, the layout (`n_groups`, local and global
+rows per level), seconds.
 
 f32root: the same MPS file as climps, read and dissected into T blocks
 (`auto_structure(read_mps(F), T)`) by one package and solved through its
@@ -1124,7 +1146,120 @@ def f32root(T, case):
         seconds=time.perf_counter() - t0)), flush=True)
 
 
+def hier(T, dtype, *args):
+    _jax_cpu()
+    from pips_ipmpp_tpu.io.energy import dispatch_blocks, highs_oracle
+
+    layers = int(next((a for a in args if a.isdigit()), 2))
+    presolve = "presolve" in args
+    which = [a for a in args if a in ("jax", "port")] or ["jax", "port"]
+    T = int(T)
+    blocks, first, leq, liq, _ = dispatch_blocks(T=T, R=150, G=550, L=350,
+                                                 S=4, seed=5)
+    oracle, _ = highs_oracle(blocks, first, leq, liq)
+    settings = dict(max_iterations=300, max_gondzio_correctors=1,
+                    refinement_steps=2, hierarchical=True,
+                    hierarchical_layers=layers,
+                    factor_dtype={"f64": "float64", "f32": "float32"}[dtype])
+    for pkg in which:
+        if pkg == "jax":
+            import jax.numpy as jnp
+
+            from pips_ipmpp_tpu.core.lp import make_arrowhead_lp
+            from pips_ipmpp_tpu.core.options import (Options, PresolverType,
+                                                     ScalerType)
+            from pips_ipmpp_tpu.interface import PIPSIPMppTPUInterface
+            lp = make_arrowhead_lp(blocks, first, leq, liq,
+                                   dtype=jnp.float64)
+            make = partial(PIPSIPMppTPUInterface, lp)
+        else:
+            import torch
+
+            from pips_ipmpp_tpu_torch.core.lp import \
+                make_arrowhead_lp as tmake
+            from pips_ipmpp_tpu_torch.core.options import (Options,
+                                                           PresolverType,
+                                                           ScalerType)
+            from pips_ipmpp_tpu_torch.interface import \
+                PIPSIPMppTorchInterface
+            torch.set_num_threads(4)
+            lp = tmake(blocks, first, leq, liq, dtype=torch.float64)
+            make = partial(PIPSIPMppTorchInterface, lp, device="cpu")
+        opts = Options(scaler=ScalerType.GEOMETRIC_MEAN_EQUILIBRIUM,
+                       presolve=(PresolverType.PRESOLVE if presolve
+                                 else PresolverType.NONE), **settings)
+        t0 = time.perf_counter()
+        iface = make(opts)
+        status = iface.run()
+        obj = float(iface.getObjective())
+        m = iface._hier_meta
+        print(json.dumps(dict(
+            package=pkg, T=T, dtype=dtype, layers=layers, presolve=presolve,
+            status=status.name, iterations=iface.n_iterations,
+            objective=obj, highs=oracle,
+            highs_rel=abs(obj - oracle) / abs(oracle),
+            n_groups=m.n_groups, mElL=m.mElL, mIlL=m.mIlL, mElG=m.mElG,
+            mIlG=m.mIlG, levels=[list(v) for v in m.levels],
+            seconds=time.perf_counter() - t0)), flush=True)
+
+
+def hiernoise(name, which, *seeds):
+    import torch
+    torch.set_num_threads(1)
+    entry = next(m for m in json.load(open(
+        "tests/data/gamssmall/manifest.json")) if m["name"] == name)
+    stem = f"tests/data/gamssmall/{name}"
+    for seed in [int(s) for s in seeds] or [-1, *range(10)]:
+        rng = np.random.default_rng(max(seed, 0))
+
+        def noise(shape):
+            if seed < 0:
+                return np.ones(shape)
+            E = rng.standard_normal(shape)
+            return 1 + 1e-16 * (E + np.swapaxes(E, -1, -2)) / 2
+        if which == "jax":
+            jax = _jax_cpu()
+            jax.config.update("jax_disable_jit", seed >= 0)
+            import jax.numpy as jnp
+
+            from pips_ipmpp_tpu.core.options import Options
+            from pips_ipmpp_tpu.interface import PIPSIPMppTPUInterface
+            from pips_ipmpp_tpu.io.blockfile import read_blocks
+            plain = jnp.linalg.__dict__.setdefault("_unperturbed",
+                                                   jnp.linalg.cholesky)
+            jnp.linalg.cholesky = lambda S: plain(  # noqa: E731
+                S * noise(S.shape))
+            iface = PIPSIPMppTPUInterface(
+                read_blocks(stem, n_blocks=entry["n_files"]),
+                Options(hierarchical=True))
+        else:
+            import pips_ipmpp_tpu_torch.linalg.arrow_backend as ab
+            from pips_ipmpp_tpu_torch.core.options import Options
+            from pips_ipmpp_tpu_torch.interface import \
+                PIPSIPMppTorchInterface
+            from pips_ipmpp_tpu_torch.io.blockfile import read_blocks
+            plain = ab.__dict__.setdefault("_unperturbed", ab._cholesky)
+            ab._cholesky = lambda S, nb=0: plain(  # noqa: E731
+                S * torch.from_numpy(noise(tuple(S.shape))), nb)
+            iface = PIPSIPMppTorchInterface(
+                read_blocks(stem, n_blocks=entry["n_files"]),
+                Options(hierarchical=True), device="cpu")
+        status = iface.run()
+        print(json.dumps(dict(package=which, name=name, seed=seed,
+                              recorded=entry["iterations"],
+                              status=status.name,
+                              iterations=int(iface.n_iterations),
+                              objective=float(iface.getObjective()))),
+              flush=True)
+
+
 if __name__ == "__main__":
+    if sys.argv[1] == "hiernoise":
+        hiernoise(*sys.argv[2:])
+        sys.exit(0)
+    if sys.argv[1] == "hier":
+        hier(*sys.argv[2:])
+        sys.exit(0)
     if sys.argv[1] == "f32root":
         f32root(*sys.argv[2:4])
         sys.exit(0)
