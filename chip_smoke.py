@@ -40,18 +40,19 @@ read just after (the ELL kernel's also per operator and width):
     through the potf2 kernel (LAPACK's order), which is also held bit for
     bit to its plain version at the root shapes, and launched by every
     f64 reference solve above;
-  - the facade's whole pipeline at full size: the JAX package's 102k-
-    variable energy dispatch LP through presolve (the native scans
-    loaded, its stats the JAX package's), geometric + equilibrium
+  - the facade's whole pipeline at full width: the JAX package's energy
+    dispatch LP (102k variables at 96 blocks; cut to MODES_T = 48 blocks
+    here, the banded phase runs 96) through presolve (the native scans
+    loaded, its stats the port's), geometric + equilibrium
     scaling, the solve and the primal postsolve, with f64 factors (potf2
     at the root; objective within 1e-6 of HiGHS, A x - b below 1e-5) and
     with the card's f32 factors (LDL kernel; within 1e-3 of the f64
-    objective), the primal gathers at 96 blocks and every gather (the
+    objective), the primal gathers at 48 blocks and every gather (the
     dual ones through the whole postsolve, its complementarity products
-    held to 1e-3) on the same LP cut to 12 blocks, and the LDL and potf2
+    held to 1e-3) on the same LP cut to 6 blocks, and the LDL and potf2
     kernels checked at its leaf and root shapes;
-  - the entry points (`cli_phase`): the gmspips CLI on the 96-block energy
-    LP's block files (`--check`, then `97 stem stepLp scaleGeo presolve
+  - the entry points (`cli_phase`): the gmspips CLI on the 48-block energy
+    LP's block files (`--check`, then `49 stem stepLp scaleGeo presolve
     f.opt`, f32, to HiGHS within 1e-3) and on the T = 24 energy LP's MPS
     file with `--auto-blocks 24 printsol` (f32 leaves, the wide root in
     f64; the JAX package's structure, to HiGHS within 1e-3), the same
@@ -61,7 +62,21 @@ read just after (the ELL kernel's also per operator and width):
     width (13k, which the JAX package's f32 path factors) and potf2 at its
     root blocks (against cholesky_ex, and bit for bit against
     the plain version on the leading columns);
-  - the solve modes (`solve_modes_phase`): the energy LP at 96 blocks
+  - the banded modes (`band_phase`): the 96-block energy LP with
+    `banded_root` through the whole pipeline in f64 (the block-tridiagonal
+    panels [1, 8, 8] and S11x through potf2; HiGHS within 1e-6) and f32
+    (1e-3), the 8 x 8192 banded LP with `banded_leaf` (f64 panels [8, 16,
+    16] through potf2) beside its dense twin (f64 leaves [8, 8192, 8192];
+    objectives within 1e-6), and the energy LP with both modes through
+    the fused loop (its host loop's iterations, one graph launch per warm
+    solve); potf2 at [1, 8, 8], [8, 16, 16] and [96, 344, 344];
+  - the bucketed layout (`bucket_phase`): the `cli` phase's dissected
+    T = 24 LP in size buckets (quantum 256) through the facade in f64
+    (HiGHS within 1e-6, the flat layout's iterations within 2) and with
+    f32 leaves (the LDL kernel at each bucket's leaf shape, the wide root
+    in f64; 1e-3), and through the fused loop; the LDL kernel at the
+    buckets' leaf shapes;
+  - the solve modes (`solve_modes_phase`): the energy LP cut to 48 blocks
     through the whole pipeline with each mode read from a reference .opt
     file (OUTER_SOLVE 2 in f64 and f32, PRECONDITION_SPARSE 1 and
     SC_COMPUTE_BLOCKWISE 1 in f64), each held as the f64 energy run (the
@@ -72,12 +87,12 @@ read just after (the ELL kernel's also per operator and width):
     Schur complement (f64, potf2 at S11 and at the panels [2, 64, 64]),
     each against its host loop with its Krylov loop a WHILE node of the
     graph; potf2 at the energy LP's panels [7, 64, 64] and [2, 64, 64];
-  - the hierarchy (`hier_phase`): the 96-block energy LP through the
-    facade with `hierarchical=True` (8 groups, 2 layers) after presolve
+  - the hierarchy (`hier_phase`): the energy LP cut to 48 blocks through
+    the facade with `hierarchical=True` (2 layers) after presolve
     and geometric + equilibrium scaling, in f64 (potf2 at the groups'
     local Schur complements, S11 and the dual Schur complement; HiGHS
     within 1e-6) and f32 (the LDL kernel at the leaves; 1e-3), every
-    gather at 12 blocks; at 3 layers through the fused loop (one graph
+    gather at 6 blocks; at 3 layers through the fused loop (one graph
     launch per warm solve, the refinement a WHILE node, its host loop's
     iterations); under outer BiCGStab; the reference's two hierarchical
     golden instances through both loops (the JAX package's iterations
@@ -89,6 +104,8 @@ read just after (the ELL kernel's also per operator and width):
     held to 1e-3) and the DenseLP happy path through the facade.
 
 `paths()` defines the solves; `profile_port.py` profiles the same ones.
+`python3 chip_smoke.py --phases band,bucket` runs only the named phases of
+`PHASES` (a probe: no kernels line, no final line).
 
 Every failure raises and exits nonzero.  The last line of standard output
 is a JSON object naming the device, the line before it the card's name and
@@ -102,6 +119,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -119,15 +137,21 @@ import torch
 
 from pips_ipmpp_tpu_torch import (Options, PIPSIPMppTorchInterface,
                                   TerminationStatus, _build)
+from pips_ipmpp_tpu_torch.core.bucketed import make_bucketed_arrowhead_lp
 from pips_ipmpp_tpu_torch.core.lp import make_arrowhead_lp
 from pips_ipmpp_tpu_torch.core.options import PresolverType, ScalerType
 from pips_ipmpp_tpu_torch.interface import (COMPLEMENTARITY_BOUND,
                                             _auto_groups)
-from pips_ipmpp_tpu_torch.io.synthetic import (random_arrowhead_lp,
+from pips_ipmpp_tpu_torch.io.synthetic import (banded_arrowhead_lp,
+                                               random_arrowhead_lp,
                                                random_sparse_arrowhead_lp)
 from pips_ipmpp_tpu_torch.ipm.solver import IPMSolver, pin_float32_precision
 from pips_ipmpp_tpu_torch.linalg import ldl, potf2, spmv, sweep
 from pips_ipmpp_tpu_torch.linalg.arrow_backend import ArrowBackend
+from pips_ipmpp_tpu_torch.linalg.band_backend import (BandArrowBackend,
+                                                      plan_banded)
+from pips_ipmpp_tpu_torch.linalg.band_root import plan_banded_root
+from pips_ipmpp_tpu_torch.linalg.bucket_backend import BucketedArrowBackend
 from pips_ipmpp_tpu_torch.linalg.hier_backend import (HierArrowBackend,
                                                       build_hierarchical_lp)
 from pips_ipmpp_tpu_torch.linalg.sparse_backend import (SparseArrowBackend,
@@ -189,11 +213,21 @@ ENERGY_PRESOLVE_STATS = dict(model_cleanup=15, singleton_rows=0,
                              nearly_parallel_rows=0, singleton_columns=96,
                              bound_strengthening=1209)
 ENERGY_EQ_RESID = 1e-5      # tests/test_realworld.py:41
+# the phases before this slice's (`energy`, `cli_blocks`, the solve modes,
+# the hierarchy) run the same LP cut to 48 blocks (full width), which the
+# banded phase runs at 96: its HiGHS objective (scipy 1.17.0) and the
+# JAX package's presolve stats for it (the port's are the same)
+MODES_T = 48
+MODES_ORACLE = 260919.6166981362
+MODES_PRESOLVE_STATS = dict(model_cleanup=8, singleton_rows=0,
+                            column_fixation=0, parallel_rows=0,
+                            nearly_parallel_rows=0, singleton_columns=48,
+                            bound_strengthening=601)
 # the dual gathers' postsolve (the JAX package's dual transfer, which
 # scores every candidate row over the whole LP) takes about ten minutes
 # at 96 blocks on the card machine's host (PERF.md §5): they run on the
-# same LP cut to 12 blocks (ROADMAP.md §3, F5)
-ENERGY_GATHER_T = 12
+# same LP cut to 6 blocks (ROADMAP.md §3, F5)
+ENERGY_GATHER_T = 6
 # ENERGY_OPTIONS' solver settings, its scaler and presolve apart
 ENERGY_SOLVER = {k: v for k, v in ENERGY_OPTIONS.items()
                  if k not in ("scaler", "presolve")}
@@ -367,6 +401,8 @@ def reset_counts():
     for fn in COUNTED.values():
         fn.launches = fn.captured = 0
     spmv.ell_spmm.launches_by.clear()
+    ldl.ldl_inverse_factors.launches_by.clear()
+    potf2.potf2.launches_by.clear()
     batched_pcg.readbacks = batched_pcg.calls = batched_pcg.capped = 0
 
 
@@ -748,10 +784,10 @@ def paths() -> dict:
                 partial(ArrowBackend, factor_dtype=f32, sweep_kernel=True))
 
     def energy_hier3():
-        # the 96-block energy LP scaled as its facade runs scale it, in the
-        # hierarchical layout at 3 layers (8 groups, then 2), no presolve
+        # the 48-block energy LP scaled as its facade runs scale it, in the
+        # hierarchical layout at 3 layers (6 groups, then 2), no presolve
         lp = make_scaler(ENERGY_OPTIONS["scaler"]).scale(
-            energy_lp(ENERGY["T"])[0])
+            energy_lp(MODES_T)[0])
         groups = _auto_groups(lp.N)
         coarse = _auto_groups(groups)
         hlp, meta = build_hierarchical_lp(
@@ -771,7 +807,8 @@ def facade_run(lp, opts: Options):
                 objective=iface.getObjective(),
                 solve_s=iface.phase_times["solve"],
                 backend=iface.backend_class.__name__,
-                x=torch.from_numpy(iface.gatherPrimalSolution()))
+                x=torch.from_numpy(iface.gatherPrimalSolution()),
+                result=iface.result)
 
 
 def solver_run(lp, backend, opts: Options):
@@ -831,9 +868,15 @@ class Setup:
         x = res.iterate.x
         if self.scaler is not None:
             x = self.scaler.unscale_x(x)
-        return float(torch.dot(self.raw.c0.double(), x.first.double())
-                     + torch.dot(self.raw.cN.double().reshape(-1),
-                                 x.blocks.double().reshape(-1)))
+        if isinstance(x.blocks, tuple):       # a bucketed LP's buckets
+            c0 = self.raw.buckets[0].c0
+            cN = [b.cN for b in self.raw.buckets]
+        else:
+            c0, cN = self.raw.c0, [self.raw.cN]
+        blocks = x.blocks if isinstance(x.blocks, tuple) else [x.blocks]
+        return float(torch.dot(c0.double(), x.first.double()) + sum(
+            torch.dot(c.double().reshape(-1), b.double().reshape(-1))
+            for c, b in zip(cN, blocks)))
 
 
 def setup(make, cg_iters=None, **opt_overrides) -> Setup:
@@ -875,6 +918,29 @@ def host_launches(fn):
                               if any(k in e.key for k in keys))
     return dict(kernel=count("LaunchKernel"), graph=count("GraphLaunch"),
                 copy=count("Memcpy", "Memset"))
+
+
+def graph_launches(fn) -> int:
+    """CUDA graph launches of one `fn()`: the calls of
+    `torch.cuda.CUDAGraph.replay`, each one `cudaGraphLaunch`, counted
+    without the profiler (whose sessions over graph replays late in one
+    process fault, ROADMAP.md §3, F4: `host_launches` counts every host
+    call in a fresh process instead)."""
+    replay = torch.cuda.CUDAGraph.replay
+    n = 0
+
+    def counted(self, *args, **kw):
+        nonlocal n
+        n += 1
+        return replay(self, *args, **kw)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    return n
 
 
 # the fused loop's paths: name -> (paths() entry, option overrides)
@@ -1080,14 +1146,15 @@ def graph_ms(solver, reps=3):
 
 
 def fused_host_calls(names) -> dict:
-    """`profile_port.py --fused NAME --reps 1` for every name, each in a
+    """`profile_port.py --fused NAME --reps 0` for every name, each in a
     fresh process (`host_launches`), all started at once and all ended
     before this returns (so that no other timing shares the card with
     them): {name: its host CUDA calls per solve}."""
     here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
     procs = {name: subprocess.Popen(
         [sys.executable, str(here / "profile_port.py"), "--fused", name,
-         "--reps", "1"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+         "--reps", "0"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, cwd=here) for name in names}
     calls = {}
     try:
@@ -1104,6 +1171,8 @@ def fused_host_calls(names) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    print("fused_host_calls", json.dumps(dict(
+        paths=len(names), seconds=time.perf_counter() - t0)), flush=True)
     return calls
 
 
@@ -1123,7 +1192,8 @@ def eager_fused(st: Setup):
                            objective=float(info["objective"]))
 
 
-def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls):
+def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls,
+               host=None):
     """The host loop and the fused loop on one solver and LP: the fused
     solve captured (first call), then replayed warm.  Each kernel of
     `kernels` must be launched into the graph; the fused solve must have
@@ -1132,11 +1202,14 @@ def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls):
     loop, or, where the options ask for carried residuals
     (`residual_update_every`, which the host loop does not read, as in
     the JAX package), the same fused loop run eagerly.  `calls`: the
-    host CUDA calls of one warm solve (`fused_host_calls`)."""
+    host CUDA calls of one warm solve (`fused_host_calls`).  `host`: a
+    host-loop result of the same solver options on the same LP that an
+    earlier phase already has (its solve is not repeated)."""
     reset_counts()
     t0 = time.perf_counter()
-    host = st.solver.solve(st.lp)
-    torch.cuda.synchronize()
+    if host is None:
+        host = st.solver.solve(st.lp)
+        torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     twin = host
     if st.solver.opts.residual_update_every:
@@ -1146,8 +1219,11 @@ def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls):
     first_s = time.perf_counter() - t0
     counts, captured = read_counts(), read_captured()
     t0 = time.perf_counter()
-    warm = st.solver.solve_fused(st.lp)
+    warm = []
+    launches = graph_launches(lambda: warm.append(
+        st.solver.solve_fused(st.lp)))
     warm_s = time.perf_counter() - t0
+    (warm,) = warm
     dev_ms = graph_ms(st.solver, reps=1)
     obj = st.objective(fused)
     rel_host = abs(fused.objective - twin.objective) / max(
@@ -1163,10 +1239,13 @@ def fused_twin(name, st: Setup, f64_objective, rtol, kernels, calls):
                objective_rel_twin=rel_host, f64_objective=f64_objective,
                objective_rel_f64=rel_f64, launches=counts,
                captured_launches=captured, host_calls_per_solve=calls,
+               graph_launches_per_solve=launches,
                graph_ms=dev_ms, device_ms_per_iteration=dev_ms / max(it, 1),
                busy_share=dev_ms / 1e3 / warm_s)
     print("fused", json.dumps(row), flush=True)
     require(fused.info["graph"], f"{name}: the fused solve was not captured")
+    require(launches == 1, f"{name}: {launches} graph launches per warm "
+                           f"solve")
     for k in kernels:
         require(captured[k] > 0, f"{name}: no {k} launch in the graph")
     require(fused.status == twin.status
@@ -1364,11 +1443,11 @@ def energy_shapes(lp) -> dict:
 
 
 def energy_phase():
-    """The facade's full pipeline at full size: the energy LP through
-    presolve, geometric + equilibrium scaling, the solve and the
-    postsolve, then every gather, with f64 factors (held to the HiGHS
-    objective and the equality residual of tests/test_realworld.py) and
-    with the card's default f32 factors (held to the f64 objective)."""
+    """The facade's full pipeline at full width: the energy LP (MODES_T
+    blocks) through presolve, geometric + equilibrium scaling, the solve
+    and the postsolve, then every gather, with f64 factors (held to the
+    HiGHS objective and the equality residual of tests/test_realworld.py)
+    and with the card's default f32 factors (held to the f64 objective)."""
     from pips_ipmpp_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -1376,7 +1455,7 @@ def energy_phase():
     require(native.available(), f"native presolve library: "
             f"{native.build_error}")
     build_s = time.perf_counter() - t0
-    lp, gen_s = energy_lp(ENERGY["T"])
+    lp, gen_s = energy_lp(MODES_T)
     rows = {}
     for name, extra, kernels in (
             ("energy_f64", dict(factor_dtype="float64"), ["potf2_f64"]),
@@ -1392,14 +1471,14 @@ def energy_phase():
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
                    **{k: v for k, v in out.items() if k != "status"},
                    status=out["status"].name,
-                   oracle=ENERGY_ORACLE,
-                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
-                   / abs(ENERGY_ORACLE))
+                   T=MODES_T, oracle=MODES_ORACLE,
+                   oracle_rel=abs(out["objective"] - MODES_ORACLE)
+                   / abs(MODES_ORACLE))
         rows[name] = row
         print("energy", json.dumps(row), flush=True)
-        require(out["stats"] == ENERGY_PRESOLVE_STATS,
+        require(out["stats"] == MODES_PRESOLVE_STATS,
                 f"{name}: presolve stats {out['stats']} are not the JAX "
-                f"package's {ENERGY_PRESOLVE_STATS}")
+                f"package's {MODES_PRESOLVE_STATS}")
         if name == "energy_f64":
             require(row["oracle_rel"] <= F64_ORACLE_RTOL,
                     f"{name}: objective {out['objective']} off the HiGHS "
@@ -1548,12 +1627,13 @@ def check_potf2_large(shapes, tag="potf2_cli_check"):
     return rows
 
 
-def cli_phase(energy_f32_iterations):
+def cli_phase():
     """The entry points users come in by, as they run them on the card
     (f32 factors, the CLI's default there):
-      - cli_blocks: the 96-block energy LP written as block files, checked
-        (`--check`) and solved by `97 stem stepLp scaleGeo presolve
-        FILE.opt` (ENERGY_OPTIONS' settings), held to ENERGY_ORACLE;
+      - cli_blocks: the energy LP cut to MODES_T blocks written as block
+        files, checked (`--check`) and solved by `49 stem stepLp scaleGeo
+        presolve FILE.opt` (ENERGY_OPTIONS' settings), held to
+        MODES_ORACLE;
       - cli_mps: the T = 24 energy LP written as MPS and solved by `--mps
         F --auto-blocks 24 printsol` (f32 leaves through the LDL kernel,
         the 13k-wide root in f64 through potf2: `interface.ROOT_F32_MAX`):
@@ -1565,13 +1645,12 @@ def cli_phase(energy_f32_iterations):
         S11 and dual Schur complement), held to HiGHS within 1e-6 and its
         recovered x to the rows and bounds;
     then the LDL kernel at the dissected LP's leaf shape and at its root's
-    width, and the potf2 kernel at its root blocks.  Returns (rows, launch counts, LP
-    shapes)."""
+    width, and the potf2 kernel at its root blocks.  Returns (rows, launch
+    counts, LP shapes, the dissected LP's block dicts)."""
     from tempfile import TemporaryDirectory
 
     from pips_ipmpp_tpu_torch import native
-    from pips_ipmpp_tpu_torch.core.dissect import (auto_structure,
-                                                   structure_report)
+    from pips_ipmpp_tpu_torch.core.dissect import dissect, structure_report
     from pips_ipmpp_tpu_torch.core.options import StepMode
     from pips_ipmpp_tpu_torch.io import energy
     from pips_ipmpp_tpu_torch.io.blockfile import write_blocks
@@ -1583,8 +1662,8 @@ def cli_phase(energy_f32_iterations):
     total = dict.fromkeys(COUNTED, 0)
     rows = {}
     with TemporaryDirectory() as tmp:
-        # ---- block files, the 96-block energy LP ----
-        lp, gen_s = energy_lp(ENERGY["T"])
+        # ---- block files, the energy LP cut to MODES_T blocks ----
+        lp, gen_s = energy_lp(MODES_T)
         stem = f"{tmp}/energy"
         t0 = time.perf_counter()
         write_blocks(lp, stem)
@@ -1605,10 +1684,9 @@ def cli_phase(energy_f32_iterations):
                    check_s=check["seconds"], cli_s=out["seconds"],
                    solve_line=out["solve time:"],
                    iterations=out["iterations"],
-                   energy_f32_iterations=energy_f32_iterations,
-                   objective=out["objective"], oracle=ENERGY_ORACLE,
-                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
-                   / abs(ENERGY_ORACLE), launches=counts,
+                   objective=out["objective"], oracle=MODES_ORACLE,
+                   oracle_rel=abs(out["objective"] - MODES_ORACLE)
+                   / abs(MODES_ORACLE), launches=counts,
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
                    host_rss_start_bytes=rss.start,
                    host_rss_peak_bytes=rss.peak)
@@ -1665,7 +1743,11 @@ def cli_phase(energy_f32_iterations):
             dense = read_mps(path)
             read_s = time.perf_counter() - t0
             t0 = time.perf_counter()
-            alp, dmap = auto_structure(dense, CLI_T, device=DEVICE)
+            # `core/dissect.auto_structure`, its block dicts kept for the
+            # bucketed layout (`bucket_phase`)
+            *dissected, dmap = dissect(dense, CLI_T)
+            alp = make_arrowhead_lp(*dissected, dtype=torch.float64,
+                                    device=DEVICE)
             torch.cuda.synchronize()
             dissect_s = time.perf_counter() - t0
             del dense
@@ -1711,6 +1793,303 @@ def cli_phase(energy_f32_iterations):
     print("cli_phase", json.dumps(dict(
         seconds=time.perf_counter() - t_phase, launches=total,
         shapes=shapes)), flush=True)
+    return rows, total, shapes, dissected
+
+
+# ---- the banded leaf and the banded root -------------------------------------
+# banded_arrowhead_lp's 8 x 8192 LP (65,544 variables, local row support):
+# the JAX package's plan gives half-bandwidth 9, panel 16, 512 panels
+BAND_LEAF = dict(N=8, n=8192, mE=4096, mI=4096, window=8)
+# the potf2 kernel at the banded paths' shapes: the energy LP's banded-root
+# panels [1, 8, 8], the 8 x 8192 LP's leaf panels [8, 16, 16] and the
+# energy LP's leaf panels [96, 344, 344]
+POTF2_BAND_SHAPES = [(1, 8), (8, 16), (96, 344)]
+
+
+def release_memory(tag):
+    """Collect Python's cyclic garbage and return the card's free cached
+    blocks (dead captured graphs' pools among them: ROADMAP.md §3, F8)
+    before a phase that needs tens of GB; print what stays allocated and
+    reserved, and the captured graphs still alive."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print("memory", json.dumps(dict(
+        at=tag, allocated_bytes=torch.cuda.memory_allocated(),
+        reserved_bytes=torch.cuda.memory_reserved(),
+        live_graphs=sum(type(o) is torch.cuda.CUDAGraph
+                        for o in gc.get_objects()))), flush=True)
+
+
+def plan_numbers(plan) -> dict:
+    return dict(half_bandwidth=plan.half_bandwidth, panel=plan.panel,
+                n_panels=plan.n_panels, n_dense=plan.n_dense)
+
+
+def by_shape(fn) -> dict:
+    """A wrapper's calls since the last reset, per [B, n]."""
+    return {f"{B}x{n}": v for (B, n), v in sorted(fn.launches_by.items())}
+
+
+def per_factorization(fn, once) -> dict:
+    """A wrapper's calls per shape and per factorization, counting
+    factorizations by the calls at `once`, a shape factored once in each."""
+    n = fn.launches_by.get(once, 0)
+    return dict(by_shape=by_shape(fn), factorizations=n,
+                per_factorization=sum(fn.launches_by.values()) / n
+                if n else None)
+
+
+def facade_solve(lp, opts: Options) -> dict:
+    """The facade on one LP: status, iterations, objective, phases, the
+    largest equality residual and the solution's size, its finiteness
+    checked; the facade's construction (the banded plans) timed apart."""
+    t0 = time.perf_counter()
+    iface = PIPSIPMppTorchInterface(lp, opts, device=DEVICE)
+    setup_s = time.perf_counter() - t0
+    status = iface.run()
+    require(status == TerminationStatus.SUCCESSFUL_TERMINATION,
+            f"{iface.backend_class.__name__}: {status.name} after "
+            f"{iface.n_iterations} iterations")
+    x = iface.gatherPrimalSolution()
+    require(x.shape == (lp.total_vars(),) and bool(np.isfinite(x).all()),
+            f"x of shape {x.shape}, or not finite")
+    return dict(status=status, iterations=iface.n_iterations,
+                objective=iface.getObjective(),
+                eq_resid=float(abs(iface.gatherPrimalResidsEQ()).max()),
+                phase_times=dict(iface.phase_times), setup_s=setup_s,
+                backend=iface.backend_class.__name__, result=iface.result)
+
+
+def fused_line(name, row) -> dict:
+    """A fused path's line: its capture, its warm solve and the graph
+    launches of that solve (`fused_twin`), beside its host loop."""
+    return dict(case=name, iterations=row["iterations"],
+                host_iterations=row["host_iterations"],
+                capture_s=row["first_solve_s"], warm_solve_s=row["solve_s"],
+                graph_ms=row["graph_ms"],
+                graph_launches_per_solve=row["graph_launches_per_solve"])
+
+
+# the flat f64 solve of the 96-block energy LP that the banded root runs
+# beside: its iterations and peak device memory on the card (PERF.md §5;
+# the `energy` phase runs 48 blocks)
+FLAT96_F64 = dict(iterations=36, peak_memory_bytes=9.39e9)
+
+
+def band_phase():
+    """The banded root and the banded leaf at full width:
+      - band_root_f64, band_root_f32: the 96-block energy LP with
+        `banded_root=True` through presolve, geometric + equilibrium
+        scaling, the solve and the primal gathers, as `energy_phase` runs
+        it (f64: the panels [1, 8, 8] and S11x through potf2, HiGHS within
+        1e-6; f32: the leaves through the LDL kernel, 1e-3);
+      - band_leaf_f64 and band_leaf_dense_f64: the 8 x 8192 banded LP with
+        `banded_leaf=True` (f64 panels [8, 16, 16] through potf2) and its
+        dense twin through the default ArrowBackend (f64 leaves [8, 8192,
+        8192]), their objectives within 1e-6 of each other;
+      - band_energy_fused_f64: the energy LP scaled, no presolve, with the
+        banded leaf and the banded root together through `solve_fused`,
+        held to its host loop (iterations) and to HiGHS, one graph launch
+        per warm solve.
+    Returns (rows, launch counts)."""
+    release_memory("band")
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTED, 0)
+    rows = {}
+    flat = FLAT96_F64
+    lp, gen_s = energy_lp(ENERGY["T"])
+    t0 = time.perf_counter()
+    rplan, lplan = plan_banded_root(lp), plan_banded(lp)
+    print("band_plans", json.dumps(dict(
+        energy_root=plan_numbers(rplan), energy_leaf=plan_numbers(lplan),
+        seconds=time.perf_counter() - t0)), flush=True)
+    for name, extra, kernels, rtol in (
+            ("band_root_f64", dict(factor_dtype="float64"), ["potf2_f64"],
+             F64_ORACLE_RTOL),
+            ("band_root_f32", {}, ["ldl_inverse_f32"], OBJ_RTOL)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, counts = drive(name, partial(energy_run, lp, Options(
+            **ENERGY_OPTIONS, banded_root=True, **extra)), kernels)
+        n0 = out["shapes"]["potf2"][0][1]
+        row = dict(case=name, status=out["status"].name,
+                   iterations=out["iterations"],
+                   flat96_f64_iterations=flat["iterations"],
+                   objective=out["objective"],
+                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
+                   / abs(ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                   solve_s=out["phase_times"]["solve"],
+                   phase_times=out["phase_times"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   flat96_f64_peak_memory_bytes=flat["peak_memory_bytes"],
+                   potf2=per_factorization(potf2.potf2, (1, n0)),
+                   ldl_by_shape=by_shape(ldl.ldl_inverse_factors),
+                   ldl_leaves=[s[:2] for s in out["shapes"]["ldl"]
+                               if s[1] == s[2]],
+                   launches=counts, total_s=time.perf_counter() - t0)
+        rows[name] = row
+        print("band", json.dumps(row), flush=True)
+        for k, v in counts.items():
+            total[k] += v
+        require(out["stats"] == ENERGY_PRESOLVE_STATS,
+                f"{name}: presolve stats {out['stats']}")
+        require(row["oracle_rel"] <= rtol,
+                f"{name}: objective {out['objective']} off HiGHS by "
+                f"{row['oracle_rel']:.3e}")
+        if name == "band_root_f64":
+            require(out["eq_resid"] < ENERGY_EQ_RESID,
+                    f"{name}: max |A x - b| = {out['eq_resid']:.3e}")
+
+    # the fused loop, both banded modes, no presolve, f64
+    scaler = make_scaler(ENERGY_OPTIONS["scaler"])
+    st = Setup(scaler.scale(lp), IPMSolver(partial(
+        BandArrowBackend, plan=lplan, band_root_plan=rplan,
+        factor_dtype=torch.float64), Options(**ENERGY_SOLVER),
+        device=DEVICE), lp, scaler)
+    counts, frow = fused_twin("band_energy_fused_f64", st, ENERGY_ORACLE,
+                              F64_ORACLE_RTOL, ["potf2_f64"], None)
+    for k, v in counts.items():
+        total[k] += v
+    line = fused_line("band_energy_fused_f64", frow)
+    rows["band_energy_fused_f64"] = line
+    print("band_fused", json.dumps(line), flush=True)
+    del st, lp
+    torch.cuda.empty_cache()
+
+    # the 8 x 8192 banded LP: the banded leaf and its dense twin
+    release_memory("band_leaf")
+    t0 = time.perf_counter()
+    blp = banded_arrowhead_lp(0, device=DEVICE, **BAND_LEAF)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    for name, opts in (
+            ("band_leaf_f64", Options(banded_leaf=True,
+                                      factor_dtype="float64")),
+            ("band_leaf_dense_f64", Options(factor_dtype="float64"))):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = drive(name, partial(facade_solve, blp, opts),
+                            ["potf2_f64"])
+        row = dict(case=name, backend=out["backend"], generate_s=gen_s,
+                   status=out["status"].name, iterations=out["iterations"],
+                   objective=out["objective"], eq_resid=out["eq_resid"],
+                   setup_s=out["setup_s"],
+                   solve_s=out["phase_times"]["solve"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   potf2=per_factorization(potf2.potf2, (1, blp.m0E
+                                                         + blp.m0I
+                                                         + blp.mEl
+                                                         + blp.mIl)),
+                   launches=counts)
+        rows[name] = row
+        print("band", json.dumps(row), flush=True)
+        for k, v in counts.items():
+            total[k] += v
+    band, dense = rows["band_leaf_f64"], rows["band_leaf_dense_f64"]
+    rel = abs(band["objective"] - dense["objective"]) / abs(
+        dense["objective"])
+    require(band["backend"] == "BandArrowBackend" and rel <= 1e-6,
+            f"band_leaf_f64: {band['backend']}, objective off its dense "
+            f"twin's by {rel:.3e}")
+    del blp
+    torch.cuda.empty_cache()
+    print("band_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, generate_s=gen_s,
+        band_leaf_rel=rel, launches=total)), flush=True)
+    return rows, total
+
+
+# ---- the bucketed layout: the dissected MPS LP in size buckets ---------------
+# the dissected T = 24 energy LP's blocks grouped at this quantum (the JAX
+# package's dissection at T = 12 gives 6 buckets at 256)
+BUCKET_QUANTUM = 256
+
+
+def bucket_phase(dissected, cli_rows):
+    """The dissected T = 24 energy LP of the `cli` phase (its block dicts,
+    not dissected again) in size buckets (`make_bucketed_arrowhead_lp`,
+    quantum 256) through the facade with the CLI's options: in f64 (potf2
+    at the shared root; HiGHS within 1e-6, the iterations of
+    `cli_mps_f64` within 2) and with f32 leaves (the LDL kernel at each
+    bucket's leaf shape, the 13k-wide root in f64 by the wide-root rule;
+    1e-3); then the f64 LP through `solve_fused` against its host loop,
+    one graph launch per warm solve.  Returns (rows, launch counts, the
+    buckets' leaf shapes)."""
+    from pips_ipmpp_tpu_torch.core.options import StepMode
+
+    release_memory("bucket")
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(COUNTED, 0)
+    rows = {}
+    t0 = time.perf_counter()
+    blp = make_bucketed_arrowhead_lp(*dissected, quantum=BUCKET_QUANTUM,
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    buckets = [dict(blocks=b.N, n=b.n, mE=b.mE, mI=b.mI)
+               for b in blp.buckets]
+    cli = cli_rows or {}
+    base = Options(step_mode=StepMode.PRIMAL)    # the CLI's, as cli_mps
+    for name, fd, kernels, rtol, flat in (
+            ("bucket_mps_f64", "float64", ["potf2_f64"], F64_ORACLE_RTOL,
+             "cli_mps_f64"),
+            ("bucket_mps_f32", "auto", ["ldl_inverse_f32", "potf2_f64"],
+             OBJ_RTOL, "cli_mps")):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = drive(name, partial(
+            facade_solve, blp, base.replace(factor_dtype=fd)), kernels)
+        ref = cli.get(flat, {})
+        if fd == "float64":
+            host = out["result"]      # the host loop of the fused twin
+        row = dict(case=name, buckets=buckets, build_s=build_s,
+                   status=out["status"].name, iterations=out["iterations"],
+                   flat_iterations=ref.get("iterations"),
+                   objective=out["objective"], oracle=CLI_ENERGY_ORACLE,
+                   oracle_rel=abs(out["objective"] - CLI_ENERGY_ORACLE)
+                   / abs(CLI_ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                   solve_s=out["phase_times"]["solve"],
+                   phase_times=out["phase_times"],
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   flat_peak_memory_bytes=ref.get("peak_memory_bytes"),
+                   ldl_by_shape=by_shape(ldl.ldl_inverse_factors),
+                   potf2_by_shape=by_shape(potf2.potf2), launches=counts)
+        rows[name] = row
+        print("bucket", json.dumps(row), flush=True)
+        for k, v in counts.items():
+            total[k] += v
+        require(row["oracle_rel"] <= rtol,
+                f"{name}: objective {out['objective']} off HiGHS by "
+                f"{row['oracle_rel']:.3e}")
+        if fd == "float64" and ref:
+            require(abs(out["iterations"] - ref["iterations"]) <= 2,
+                    f"{name}: {out['iterations']} iterations, the flat "
+                    f"layout's {ref['iterations']}")
+        if fd == "auto":
+            # one leaf shape per bucket with rows (the kernel launches
+            # nothing for a bucket of row-free blocks)
+            rowful = {(b.N, b.mE + b.mI) for b in blp.buckets if b.mE + b.mI}
+            require(set(ldl.ldl_inverse_factors.launches_by) == rowful,
+                    f"{name}: LDL calls at {by_shape(ldl.ldl_inverse_factors)}"
+                    f", not at the buckets' leaf shapes {sorted(rowful)}")
+
+    st = Setup(blp, IPMSolver(partial(
+        BucketedArrowBackend, factor_dtype=torch.float64,
+        root_factor_dtype=torch.float64), base.replace(
+        factor_dtype="float64"), device=DEVICE), blp)
+    counts, frow = fused_twin("bucket_fused_f64", st, CLI_ENERGY_ORACLE,
+                              F64_ORACLE_RTOL, ["potf2_f64"], None,
+                              host=host)
+    for k, v in counts.items():
+        total[k] += v
+    line = fused_line("bucket_fused_f64", frow)
+    rows["bucket_fused_f64"] = line
+    print("bucket_fused", json.dumps(line), flush=True)
+    shapes = [(b.N, b.mE + b.mI, b.mE + b.mI) for b in blp.buckets
+              if b.mE + b.mI]
+    del st, blp
+    torch.cuda.empty_cache()
+    print("bucket_phase", json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, launches=total)), flush=True)
     return rows, total, shapes
 
 
@@ -1779,12 +2158,14 @@ def recorded(run):
 
 
 def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
-    """ArrowBackend's three other solve modes at full size: the energy LP
-    through the facade's whole pipeline with each mode read from a
-    reference .opt file (outer BiCGStab in f64 and f32, the iterative root
-    and the blockwise Schur complement in f64), back to back on one LP,
-    each held as the energy f64 run is (or, f32, to the f64 BiCGStab
-    objective), the blockwise run's peak memory below `energy_f64`'s; then
+    """ArrowBackend's three other solve modes at full width: the energy LP
+    cut to MODES_T blocks through the facade's whole pipeline with each
+    mode read from a reference .opt file (outer BiCGStab in f64 and f32,
+    the iterative root and the blockwise Schur complement in f64), back to
+    back on one LP, each held to HiGHS as the energy f64 run is (or, f32,
+    to the f64 BiCGStab objective), the blockwise run's peak memory below
+    the cached f64 BiCGStab run's (`energy_f64_peak`, the `energy` phase's,
+    printed beside); then
     the fused loop on the flagship under outer BiCGStab (f32) and under the
     iterative root with the blockwise Schur complement (f64), each held to
     its host-loop twin with its kernel and its Krylov loop in the graph and
@@ -1793,7 +2174,7 @@ def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
 
     t_phase = time.perf_counter()
     total = dict.fromkeys(COUNTED, 0)
-    lp, gen_s = energy_lp(ENERGY["T"])
+    lp, gen_s = energy_lp(MODES_T)
     rows = {}
     with TemporaryDirectory() as tmp:
         for name, line, fd, kernels in SOLVE_MODE_RUNS:
@@ -1816,15 +2197,15 @@ def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
                        status=out["status"].name,
                        iterations=out["iterations"],
                        objective=out["objective"],
-                       oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
-                       / abs(ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                       oracle_rel=abs(out["objective"] - MODES_ORACLE)
+                       / abs(MODES_ORACLE), eq_resid=out["eq_resid"],
                        stats=out["stats"], phase_times=out["phase_times"],
                        total_s=time.perf_counter() - t0, launches=counts,
                        peak_memory_bytes=peak,
                        start_memory_bytes=start_bytes,
                        **mode_stats(record))
             rows[name] = row
-            require(out["stats"] == ENERGY_PRESOLVE_STATS,
+            require(out["stats"] == MODES_PRESOLVE_STATS,
                     f"{name}: presolve stats {out['stats']}")
             if fd == "float64":
                 require(row["oracle_rel"] <= F64_ORACLE_RTOL
@@ -1845,10 +2226,14 @@ def solve_modes_phase(energy_f64_peak, flag_f64, flag_calls, host_calls):
                 require(row.get("cg", {}).get("solves", 0) > 0
                         and "panels" in row, f"{name}: no root CG ran")
             if opts.sc_blockwise:
+                # the cached f64 run at the same depth: outer BiCGStab's
+                # (its caches are the default's, its Krylov vectors more)
+                cached = rows["energy_bicgstab_f64"]["peak_memory_bytes"]
+                row["cached_peak_memory_bytes"] = cached
                 row["energy_f64_peak_memory_bytes"] = energy_f64_peak
-                require(peak < energy_f64_peak,
-                        f"{name}: peak {peak} B not below energy_f64's "
-                        f"{energy_f64_peak} B")
+                require(peak < cached,
+                        f"{name}: peak {peak} B not below the cached "
+                        f"run's {cached} B")
             print("solve_modes", json.dumps(row), flush=True)
     del lp
     torch.cuda.empty_cache()
@@ -1954,19 +2339,19 @@ def hier_run(lp, opts: Options, all_gathers=False):
                 all_gathers_s=sum(gather_s.values()))
 
 
-def hier_phase(energy_f64, host_calls):
-    """The hierarchical approach at full size: the 96-block energy LP
-    through the facade with `hierarchical=True` (8 groups, 2 layers) after
+def hier_phase(host_calls):
+    """The hierarchical approach at full width: the energy LP at MODES_T
+    blocks through the facade with `hierarchical=True` (2 layers) after
     presolve and geometric + equilibrium scaling, in f64 (potf2 at the
     groups' local Schur complements, S11 and the dual Schur complement;
     HiGHS within 1e-6, A x - b below 1e-5) and in f32 (the LDL kernel at
-    the leaves; 1e-3), every gather at 12 blocks; the 3-layer layout
+    the leaves; 1e-3), every gather at 6 blocks; the 3-layer layout
     through the fused loop (one captured graph per solve, the refinement
     a WHILE node, the host loop's iterations); outer BiCGStab under the
     hierarchy; the two hierarchical golden instances through both loops;
-    and checkpoint/resume on the flat energy LP (f64, host loop).
-    `energy_f64`: the flat f64 run's row, printed beside.  Returns
-    (launch counts, the kernels' shapes)."""
+    and checkpoint/resume on the flat energy LP (f64, host loop).  The
+    energy LP is cut to MODES_T blocks (full width).  Returns (launch
+    counts, the kernels' shapes)."""
     from tempfile import TemporaryDirectory
 
     from pips_ipmpp_tpu_torch.io.blockfile import read_blocks
@@ -1980,7 +2365,7 @@ def hier_phase(energy_f64, host_calls):
         for k, v in counts.items():
             total[k] += v
 
-    lp, gen_s = energy_lp(ENERGY["T"])
+    lp, gen_s = energy_lp(MODES_T)
     shapes = {}
     for name, extra, kernels, rtol in (
             ("hier_f64", dict(factor_dtype="float64"), ["potf2_f64"],
@@ -1992,21 +2377,18 @@ def hier_phase(energy_f64, host_calls):
             **ENERGY_OPTIONS, hierarchical=True, **extra)), kernels)
         add(counts)
         table = out.pop("monitor_table")
-        row = dict(case=name, iterations=out["iterations"],
-                   energy_f64_iterations=energy_f64["iterations"],
+        row = dict(case=name, T=MODES_T, iterations=out["iterations"],
                    status=out["status"].name, objective=out["objective"],
-                   oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
-                   / abs(ENERGY_ORACLE), eq_resid=out["eq_resid"],
+                   oracle_rel=abs(out["objective"] - MODES_ORACLE)
+                   / abs(MODES_ORACLE), eq_resid=out["eq_resid"],
                    phase_times=out["phase_times"], monitor=out["monitor"],
                    layout=out["layout"], shapes=out["shapes"],
                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                   energy_f64_peak_memory_bytes=energy_f64[
-                       "peak_memory_bytes"],
                    launches=counts, total_s=time.perf_counter() - t0)
         print("hierarchical", json.dumps(row), flush=True)
         print(table, flush=True)
         shapes[name] = out["shapes"]
-        require(out["stats"] == ENERGY_PRESOLVE_STATS,
+        require(out["stats"] == MODES_PRESOLVE_STATS,
                 f"{name}: presolve stats {out['stats']}")
         require(row["oracle_rel"] <= rtol,
                 f"{name}: objective {out['objective']} off HiGHS by "
@@ -2043,8 +2425,8 @@ def hier_phase(energy_f64, host_calls):
     out.pop("monitor_table")
     row = dict(case="hier_bicgstab_f64", iterations=out["iterations"],
                objective=out["objective"],
-               oracle_rel=abs(out["objective"] - ENERGY_ORACLE)
-               / abs(ENERGY_ORACLE), phase_times=out["phase_times"],
+               oracle_rel=abs(out["objective"] - MODES_ORACLE)
+               / abs(MODES_ORACLE), phase_times=out["phase_times"],
                layout=out["layout"], launches=counts, **mode_stats(record))
     print("hierarchical", json.dumps(row), flush=True)
     require(row.get("bicgstab", {}).get("solves", 0) > 0,
@@ -2090,7 +2472,7 @@ def hier_phase(energy_f64, host_calls):
         resumed_status=resumed.status.name,
         resumed_iterations=resumed.iterations, objective=full.objective,
         resumed_objective=resumed.objective, resumed_rel=rel,
-        oracle_rel=abs(full.objective - ENERGY_ORACLE) / abs(ENERGY_ORACLE),
+        oracle_rel=abs(full.objective - MODES_ORACLE) / abs(MODES_ORACLE),
         file_bytes=size, save_s=save_s, load_s=load_s,
         resumed_solve_s=resumed_s, launches=counts)), flush=True)
     require(full.status == resumed.status
@@ -2105,7 +2487,7 @@ def hier_phase(energy_f64, host_calls):
     # the 3-layer layout through the fused loop against its host loop
     st = setup(paths()["energy_hier3"])
     (counts, frow), record = recorded(lambda: fused_twin(
-        "energy_hier3", st, ENERGY_ORACLE, F64_ORACLE_RTOL, ["potf2_f64"],
+        "energy_hier3", st, MODES_ORACLE, F64_ORACLE_RTOL, ["potf2_f64"],
         host_calls["energy_hier3"]))
     add(counts)
     warm = [frow["solve_s"]]
@@ -2279,7 +2661,42 @@ def dense_path(name, f32_run, f64_run, n_vars, kernel):
     return counts, out, ref["objective"]
 
 
-def main():
+def dissected_mps_lp():
+    """The `cli` phase's dissected LP without the CLI runs: the T = 24
+    energy LP written as MPS, read back and dissected into 24 blocks (the
+    block dicts)."""
+    from tempfile import TemporaryDirectory
+
+    from pips_ipmpp_tpu_torch.core.dissect import dissect
+    from pips_ipmpp_tpu_torch.io import energy
+    from pips_ipmpp_tpu_torch.io.mps import read_mps
+
+    with TemporaryDirectory() as tmp:
+        path = f"{tmp}/energy{CLI_T}.mps"
+        energy.write_mps(path, *energy.dispatch_blocks(
+            **dict(ENERGY, T=CLI_T))[:4])
+        *blocks, _ = dissect(read_mps(path), CLI_T)
+    return blocks
+
+
+PHASES = ("kernels", "main", "fused", "golden", "energy", "band", "cli",
+          "bucket", "modes", "hier", "final")
+
+
+def main(argv=None):
+    """Every phase, in order; `--phases a,b,...` runs those of PHASES alone
+    (a probe: it prints no kernels line and no final line)."""
+    args = sys.argv[1:] if argv is None else argv
+    only = None
+    if args:
+        require(len(args) == 2 and args[0] == "--phases"
+                and set(args[1].split(",")) <= set(PHASES),
+                f"usage: chip_smoke.py [--phases {','.join(PHASES)}]")
+        only = set(args[1].split(","))
+
+    def on(phase):
+        return only is None or phase in only
+
     t_main = time.perf_counter()
 
     def clock(after):
@@ -2308,184 +2725,246 @@ def main():
     print("build", json.dumps(dict(seconds=time.perf_counter() - t0,
                                    library=lib_path.name)), flush=True)
 
-    # ---- 3. kernels against their plain versions ----
-    slp = sparse_lp()
-    ldl_rows = check_ldl_kernel()
-    ell_rows = check_ell_kernel(slp)
-    sweep_rows = check_sweep_kernel()
-    potf2_rows = check_potf2_kernel()
-    clock("kernel checks")
-
     total = dict.fromkeys(COUNTED, 0)
 
     def add(counts):
         for k, v in counts.items():
             total[k] += v
 
+    ldl_rows, ell_rows, sweep_rows, potf2_rows = [], [], [], []
+    # ---- 3. kernels against their plain versions ----
+    if on("kernels"):
+        slp = sparse_lp()
+        ldl_rows += check_ldl_kernel()
+        ell_rows += check_ell_kernel(slp)
+        sweep_rows += check_sweep_kernel()
+        potf2_rows += check_potf2_kernel()
+        del slp
+        clock("kernel checks")
+
     P = paths()
     f64_factors = partial(ArrowBackend, factor_dtype=torch.float64)
 
-    # ---- 4. dense main path: flagship through the facade ----
-    flag, opts, _ = P["flagship"]()
-    counts, _, flag_f64 = dense_path(
-        "flagship_facade", partial(facade_run, flag, opts),
-        partial(facade_run, flag.astype(torch.float64),
-                opts.replace(factor_dtype="float64")),
-        flag.total_vars(), "ldl_inverse_f32")
-    add(counts)
-
-    # ---- 5. dense main path: big leaves, bench production configuration
-    big, opts, backend = P["bigleaf"]()
-    counts, _, big_f64 = dense_path(
-        "bigleaf_ipmsolver", partial(solver_run, big, backend, opts),
-        partial(solver_run, big, f64_factors, opts),
-        big.total_vars(), "ldl_inverse_f32")
-    add(counts)
-
-    # ---- 6. sparse path through the facade, f32 factors: 4.3 GB of dense
-    #         twin > the 256 MB default budget -> SparseArrowBackend ----
-    out, counts = drive("sparse_facade_f32",
-                        partial(path_run, *P["sparse_f32"]()),
-                        ["ell_spmm", "ldl_inverse_f32"])
-    require(out["backend"] == "SparseArrowBackend",
-            f"sparse facade routed to {out['backend']}")
-    report("sparse_facade_f32", out, counts, SPARSE_ORACLE, OBJ_RTOL,
-           slp.total_vars(), backend=out["backend"])
-    add(counts)
-
-    # ---- 7. sparse f64 check: the JAX package's acceptance run ----
-    out, counts = drive("sparse_ipmsolver_f64",
-                        partial(path_run, *P["sparse_f64"]()), ["ell_spmm"])
-    report("sparse_ipmsolver_f64", out, counts, SPARSE_ORACLE,
-           F64_ORACLE_RTOL, slp.total_vars())
-    add(counts)
-
-    # ---- 8. opt-in sweep path, the JAX package's sweep test in f32 ----
-    sweep_lp, opts, backend = P["sweep"]()
-    sweep_counts, sweep_out, _ = dense_path(
-        "sweep_ipmsolver", partial(solver_run, sweep_lp, backend, opts),
-        partial(solver_run, sweep_lp, f64_factors, opts),
-        sweep_lp.total_vars(), "sweep_inverse")
-    add(sweep_counts)
-    require(abs(sweep_out["objective"] - SWEEP_OPTIMUM)
-            <= OBJ_RTOL * (1.0 + SWEEP_OPTIMUM),
-            f"sweep solve objective {sweep_out['objective']} is not the "
-            f"optimum {SWEEP_OPTIMUM}")
-
-    clock("main paths")
-
-    # ---- 9. the fused loop: each path as one captured graph, against its
-    #         host loop and the f64 objective; every fused path's host
-    #         CUDA calls first (the solve modes' too), in fresh processes
-    #         at once ----
-    host_calls = fused_host_calls(list(FUSED_PATHS))
-    fused_rows = []
-    for name, f64_obj, kernels in (
-            ("flagship", flag_f64, ["ldl_inverse_f32"]),
-            ("bigleaf", big_f64, ["ldl_inverse_f32"]),
-            ("sparse_f32", SPARSE_ORACLE, ["ell_spmm", "ldl_inverse_f32"]),
-            ("flagship_update_every_4", flag_f64, ["ldl_inverse_f32"])):
-        path, over = FUSED_PATHS[name]
-        st = setup(P[path], **over)
-        counts, row = fused_twin(name, st, f64_obj, OBJ_RTOL, kernels,
-                                 host_calls[name])
+    flag_f64 = big_f64 = None
+    hosts = {}          # host-loop results the fused twins reuse
+    if on("main"):
+        # ---- 4. dense main path: flagship through the facade ----
+        flag, opts, _ = P["flagship"]()
+        counts, _, flag_f64 = dense_path(
+            "flagship_facade", partial(facade_run, flag, opts),
+            partial(facade_run, flag.astype(torch.float64),
+                    opts.replace(factor_dtype="float64")),
+            flag.total_vars(), "ldl_inverse_f32")
         add(counts)
-        fused_rows.append(row)
-        if name == "flagship":
-            reset_counts()
-            fused_stream(st, range(4))
-            add(read_counts())
-        # ---- 9b. the fused batch of this path, against its singles ----
-        for bname, (bpath, B) in BATCH_PATHS.items():
-            if bpath == name:
-                counts, _ = fused_batch(bname, st, B, kernels)
-                add(counts)
-        del st
-        torch.cuda.empty_cache()
 
-    # ---- 9c. the LDL kernel at the batches' leaf and root shapes ----
-    ldl_rows += check_ldl_kernel(BATCH_LDL_SHAPES, "ldl_batch_check")
-    clock("fused loops")
+        # ---- 5. dense main path: big leaves, bench production
+        #         configuration ----
+        big, opts, backend = P["bigleaf"]()
+        counts, _, big_f64 = dense_path(
+            "bigleaf_ipmsolver", partial(solver_run, big, backend, opts),
+            partial(solver_run, big, f64_factors, opts),
+            big.total_vars(), "ldl_inverse_f32")
+        add(counts)
 
-    # ---- 10. the golden instances, f64, both loops: the root through the
-    #          potf2 kernel, also inside every captured graph ----
-    reset_counts()
-    golden = golden_phase()
-    golden.update(launches=read_counts(), captured_launches=read_captured())
-    print("golden_summary", json.dumps(golden), flush=True)
-    require(golden["launches"]["potf2_f64"] > 0
-            and golden["captured_launches"]["potf2_f64"] > 0,
-            f"golden: the root's potf2 kernel was not launched "
-            f"({golden['launches']}, captured {golden['captured_launches']})")
-    add(golden["launches"])
-    clock("golden")
+        # ---- 6. sparse path through the facade, f32 factors: 4.3 GB of
+        #         dense twin > the 256 MB default budget ->
+        #         SparseArrowBackend ----
+        slp = sparse_lp()
+        out, counts = drive("sparse_facade_f32",
+                            partial(path_run, *P["sparse_f32"]()),
+                            ["ell_spmm", "ldl_inverse_f32"])
+        require(out["backend"] == "SparseArrowBackend",
+                f"sparse facade routed to {out['backend']}")
+        report("sparse_facade_f32", out, counts, SPARSE_ORACLE, OBJ_RTOL,
+               slp.total_vars(), backend=out["backend"])
+        add(counts)
+        # the host loop of the fused sparse path's twin (the same scaled
+        # LP and solver as `setup` builds), not solved again there
+        hosts["sparse_f32"] = out["result"]
 
-    # ---- 11. the facade's full pipeline at full size: the energy LP
-    #          through presolve, scaling, the solve (f64 factors: potf2
-    #          at the root; f32: the LDL kernel) and the postsolve ----
-    energy = energy_phase()
-    for row in energy.values():
-        add(row["launches"])
-    shapes = energy["energy_f32"]["shapes"]
-    ldl_rows += check_ldl_kernel([(B, a, p) for B, a, p in shapes["ldl"]],
-                                 "ldl_energy_check")
-    potf2_rows += check_potf2_kernel(
-        [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
-        "potf2_energy_check")
-    clock("energy")
+        # ---- 7. sparse f64 check: the JAX package's acceptance run ----
+        out, counts = drive("sparse_ipmsolver_f64",
+                            partial(path_run, *P["sparse_f64"]()),
+                            ["ell_spmm"])
+        report("sparse_ipmsolver_f64", out, counts, SPARSE_ORACLE,
+               F64_ORACLE_RTOL, slp.total_vars())
+        add(counts)
+        del slp
 
-    # ---- 11a. the entry points: the CLI on the 96-block LP's block
-    #           files and on the T = 24 LP's MPS with --auto-blocks (f32
-    #           leaves, LDL kernel; the wide root in f64, potf2), the
-    #           dissected LP in f64 (potf2 at its root);
-    #           the kernels at the dissected LP's shapes ----
-    _, counts, shapes = cli_phase(energy["energy_f32"]["iterations"])
-    add(counts)
-    ldl_rows += check_ldl_kernel([(B, a, p) for B, a, p in shapes["ldl"]],
-                                 "ldl_cli_check")
-    potf2_rows += check_potf2_large([tuple(x) for x in shapes["potf2"]])
-    clock("entry points")
+        # ---- 8. opt-in sweep path, the JAX package's sweep test in f32 ----
+        sweep_lp, opts, backend = P["sweep"]()
+        sweep_counts, sweep_out, _ = dense_path(
+            "sweep_ipmsolver", partial(solver_run, sweep_lp, backend, opts),
+            partial(solver_run, sweep_lp, f64_factors, opts),
+            sweep_lp.total_vars(), "sweep_inverse")
+        add(sweep_counts)
+        require(abs(sweep_out["objective"] - SWEEP_OPTIMUM)
+                <= OBJ_RTOL * (1.0 + SWEEP_OPTIMUM),
+                f"sweep solve objective {sweep_out['objective']} is not the "
+                f"optimum {SWEEP_OPTIMUM}")
+        clock("main paths")
 
-    # ---- 11b. the solve modes: the energy LP under outer BiCGStab, the
-    #           iterative root and the blockwise Schur complement, and the
-    #           fused flagship under them; potf2 at the root's panels ----
-    _, counts = solve_modes_phase(
-        energy["energy_f64"]["peak_memory_bytes"], flag_f64,
-        fused_rows[0]["host_calls_per_solve"], host_calls)
-    add(counts)
-    potf2_rows += check_potf2_kernel(POTF2_PANEL_SHAPES,
-                                     "potf2_panels_check")
-    clock("solve modes")
+    host_calls, fused_rows = {}, []
+    if on("fused"):
+        # ---- 9. the fused loop: each path as one captured graph, against
+        #         its host loop and the f64 objective; every fused path's
+        #         host CUDA calls first (the solve modes' too), in fresh
+        #         processes at once ----
+        host_calls = fused_host_calls(list(FUSED_PATHS))
+        for name, f64_obj, kernels in (
+                ("flagship", flag_f64, ["ldl_inverse_f32"]),
+                ("bigleaf", big_f64, ["ldl_inverse_f32"]),
+                ("sparse_f32", SPARSE_ORACLE,
+                 ["ell_spmm", "ldl_inverse_f32"]),
+                ("flagship_update_every_4", flag_f64, ["ldl_inverse_f32"])):
+            path, over = FUSED_PATHS[name]
+            st = setup(P[path], **over)
+            counts, row = fused_twin(name, st, f64_obj, OBJ_RTOL, kernels,
+                                     host_calls[name], hosts.get(name))
+            add(counts)
+            fused_rows.append(row)
+            if name == "flagship":
+                reset_counts()
+                fused_stream(st, range(4))
+                add(read_counts())
+            # ---- 9b. the fused batch of this path, against its singles --
+            for bname, (bpath, B) in BATCH_PATHS.items():
+                if bpath == name:
+                    counts, _ = fused_batch(bname, st, B, kernels)
+                    add(counts)
+            del st
+            torch.cuda.empty_cache()
 
-    # ---- 11c. the hierarchy on the energy LP (f64: potf2 at the groups'
-    #           local Schur complements, S11 and the dual Schur complement;
-    #           f32: the LDL kernel at the leaves), 3 layers fused, outer
-    #           BiCGStab, the golden hier instances, checkpoint/resume; both
-    #           kernels at the hierarchy's shapes ----
-    counts, shapes = hier_phase(energy["energy_f64"], host_calls)
-    add(counts)
-    # the shapes an earlier check of this run took (the leaves and S11 are
-    # the flat energy LP's) are not checked again
-    done = {tuple(r["shape"]) for r in ldl_rows + potf2_rows}
-    ldl_all = [(B, a, a) for B, a, _ in shapes["hier_f32"]["ldl"]]
-    potf2_all = [(B, n, n) for B, n in shapes["hier_f64"]["potf2"]]
-    ldl_new = [s for s in ldl_all if s not in done]
-    potf2_new = [(B, n) for B, n, _ in potf2_all if (B, n, n) not in done]
-    print("hier_kernel_checks", json.dumps(dict(
-        ldl=ldl_all, potf2=potf2_all,
-        checked_earlier=[s for s in ldl_all + potf2_all if s in done])),
-        flush=True)
-    ldl_rows += check_ldl_kernel(ldl_new, "ldl_hier_check")
-    potf2_rows += check_potf2_kernel(potf2_new, "potf2_hier_check")
-    clock("hierarchical")
+        # ---- 9c. the LDL kernel at the batches' leaf and root shapes ----
+        ldl_rows += check_ldl_kernel(BATCH_LDL_SHAPES, "ldl_batch_check")
+        release_memory("fused")
+        clock("fused loops")
 
-    # ---- 12. the golden instances through the facade with presolve,
-    #          and the DenseLP happy path ----
-    reset_counts()
-    golden_presolved_phase()
-    dense_lp_phase()
-    add(read_counts())
-    clock("golden presolved, DenseLP")
+    if on("golden"):
+        # ---- 10. the golden instances, f64, both loops: the root through
+        #          the potf2 kernel, also inside every captured graph ----
+        reset_counts()
+        golden = golden_phase()
+        golden.update(launches=read_counts(),
+                      captured_launches=read_captured())
+        print("golden_summary", json.dumps(golden), flush=True)
+        require(golden["launches"]["potf2_f64"] > 0
+                and golden["captured_launches"]["potf2_f64"] > 0,
+                f"golden: the root's potf2 kernel was not launched "
+                f"({golden['launches']}, captured "
+                f"{golden['captured_launches']})")
+        add(golden["launches"])
+        clock("golden")
+
+    energy = {}
+    if on("energy"):
+        # ---- 11. the facade's full pipeline at full size: the energy LP
+        #          through presolve, scaling, the solve (f64 factors: potf2
+        #          at the root; f32: the LDL kernel) and the postsolve ----
+        energy = energy_phase()
+        for row in energy.values():
+            add(row["launches"])
+        shapes = energy["energy_f32"]["shapes"]
+        ldl_rows += check_ldl_kernel(
+            [(B, a, p) for B, a, p in shapes["ldl"]], "ldl_energy_check")
+        potf2_rows += check_potf2_kernel(
+            [tuple(x) for x in energy["energy_f64"]["shapes"]["potf2"]],
+            "potf2_energy_check")
+        clock("energy")
+
+    if on("band"):
+        # ---- 11a. the banded root and the banded leaf: the energy LP
+        #           with banded_root (f64 panels through potf2; f32), the
+        #           8 x 8192 banded LP beside its dense twin, both banded
+        #           modes through the fused loop; potf2 at their panels ----
+        rows, counts = band_phase()
+        add(counts)
+        potf2_rows += check_potf2_kernel(POTF2_BAND_SHAPES,
+                                         "potf2_band_check")
+        # the 96-block leaves of band_root_f32 (the `energy` phase checks
+        # its 48-block ones)
+        ldl_rows += check_ldl_kernel(
+            [(B, a, a) for B, a in rows["band_root_f32"]["ldl_leaves"]],
+            "ldl_band_check")
+        clock("banded")
+
+    cli_rows, dissected = {}, None
+    if on("cli"):
+        # ---- 11b. the entry points: the CLI on the 48-block LP's block
+        #           files and on the T = 24 LP's MPS with --auto-blocks (f32
+        #           leaves, LDL kernel; the wide root in f64, potf2), the
+        #           dissected LP in f64 (potf2 at its root);
+        #           the kernels at the dissected LP's shapes ----
+        cli_rows, counts, shapes, dissected = cli_phase()
+        add(counts)
+        ldl_rows += check_ldl_kernel(
+            [(B, a, p) for B, a, p in shapes["ldl"]], "ldl_cli_check")
+        potf2_rows += check_potf2_large([tuple(x) for x in shapes["potf2"]])
+        clock("entry points")
+
+    if on("bucket"):
+        # ---- 11c. the dissected LP in size buckets through the facade
+        #           (f64; f32 leaves, the LDL kernel at each bucket's
+        #           shape) and the fused loop; the LDL kernel at the
+        #           buckets' leaf shapes ----
+        _, counts, shapes = bucket_phase(dissected or dissected_mps_lp(),
+                                         cli_rows)
+        del dissected
+        add(counts)
+        ldl_rows += check_ldl_kernel(shapes, "ldl_bucket_check")
+        clock("bucketed")
+
+    if on("modes"):
+        # ---- 11d. the solve modes: the energy LP (48 blocks) under outer
+        #           BiCGStab, the iterative root and the blockwise Schur
+        #           complement, and the fused flagship under them; potf2 at
+        #           the root's panels ----
+        _, counts = solve_modes_phase(
+            energy["energy_f64"]["peak_memory_bytes"], flag_f64,
+            fused_rows[0]["host_calls_per_solve"], host_calls)
+        add(counts)
+        potf2_rows += check_potf2_kernel(POTF2_PANEL_SHAPES,
+                                         "potf2_panels_check")
+        clock("solve modes")
+
+    if on("hier"):
+        # ---- 11e. the hierarchy on the energy LP (48 blocks; f64: potf2
+        #           at the groups' local Schur complements, S11 and the dual
+        #           Schur complement; f32: the LDL kernel at the leaves), 3
+        #           layers fused, outer BiCGStab, the golden hier instances,
+        #           checkpoint/resume; both kernels at the hierarchy's
+        #           shapes ----
+        counts, shapes = hier_phase(host_calls)
+        add(counts)
+        # the shapes an earlier check of this run took are not checked
+        # again
+        done = {tuple(r["shape"]) for r in ldl_rows + potf2_rows}
+        ldl_all = [(B, a, a) for B, a, _ in shapes["hier_f32"]["ldl"]]
+        potf2_all = [(B, n, n) for B, n in shapes["hier_f64"]["potf2"]]
+        ldl_new = [s for s in ldl_all if s not in done]
+        potf2_new = [(B, n) for B, n, _ in potf2_all
+                     if (B, n, n) not in done]
+        print("hier_kernel_checks", json.dumps(dict(
+            ldl=ldl_all, potf2=potf2_all,
+            checked_earlier=[s for s in ldl_all + potf2_all if s in done])),
+            flush=True)
+        ldl_rows += check_ldl_kernel(ldl_new, "ldl_hier_check")
+        potf2_rows += check_potf2_kernel(potf2_new, "potf2_hier_check")
+        clock("hierarchical")
+
+    if on("final"):
+        # ---- 12. the golden instances through the facade with presolve,
+        #          and the DenseLP happy path ----
+        reset_counts()
+        golden_presolved_phase()
+        dense_lp_phase()
+        add(read_counts())
+        clock("golden presolved, DenseLP")
+
+    if only is not None:
+        print("partial run", json.dumps(dict(phases=sorted(only),
+                                             launches=total)), flush=True)
+        return 0
 
     # ---- 13. the kernels line ----
     leaf = ldl_rows[0]

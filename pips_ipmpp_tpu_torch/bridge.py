@@ -12,10 +12,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from pips_ipmpp_tpu_torch.core.bucketed import BucketedArrowheadLP
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, stack_lps
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
 from pips_ipmpp_tpu_torch.core.spaces import RVec, XVec
 from pips_ipmpp_tpu_torch.ipm.formulation import Iterate
+from pips_ipmpp_tpu_torch.linalg.band_backend import BandPlan
+from pips_ipmpp_tpu_torch.linalg.band_root import BandRootPlan
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -41,6 +44,35 @@ def lps_from_numpy(batch: list[dict[str, np.ndarray]], *, device,
     them: the batch of `IPMSolver.solve_fused_batch_async`."""
     return stack_lps([lp_from_numpy(f, device=device, dtype=dtype)
                       for f in batch])
+
+
+def bucketed_lp_from_numpy(buckets: list[dict[str, np.ndarray]],
+                           placement, *, device,
+                           dtype) -> BucketedArrowheadLP:
+    """A BucketedArrowheadLP from one field dict per bucket (as
+    `lp_from_numpy` takes them) and the block -> (bucket, position)
+    placement."""
+    return BucketedArrowheadLP(
+        tuple(lp_from_numpy(f, device=device, dtype=dtype) for f in buckets),
+        tuple((int(b), int(p)) for b, p in placement))
+
+
+def band_plan_from_numpy(fields: dict) -> BandPlan:
+    """A BandPlan from {perm, iperm, half_bandwidth, panel, n_panels,
+    n_dense}."""
+    return _plan(BandPlan, fields)
+
+
+def band_root_plan_from_numpy(fields: dict) -> BandRootPlan:
+    """A BandRootPlan from the same keys as `band_plan_from_numpy`."""
+    return _plan(BandRootPlan, fields)
+
+
+def _plan(cls, fields):
+    return cls(perm=np.asarray(fields["perm"], np.int32),
+               iperm=np.asarray(fields["iperm"], np.int32),
+               **{k: int(fields[k]) for k in ("half_bandwidth", "panel",
+                                              "n_panels", "n_dense")})
 
 
 def sparse_lp_from_numpy(fields: dict, *, device,

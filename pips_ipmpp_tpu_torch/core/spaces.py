@@ -5,6 +5,10 @@ Counterpart of `pips_ipmpp_tpu/core/spaces.py`:
   XVec: variable-space vector   (first: [n0], blocks: [N, n])
   RVec: row-space vector        (first: [m0], blocks: [N, m], link: [ml])
 
+Over a bucketed LP (`core/bucketed.py`) `blocks` is a tuple of
+per-bucket tensors; the reductions take its leaves in order, as the JAX
+package's do.
+
 Elementwise IPM ops go through `tmap` (the `jax.tree.map` of this
 package: it walks dataclasses, tuples, lists and dicts and applies `fn` to
 the tensor leaves); reductions go through the functions below.  All of
@@ -162,6 +166,12 @@ def _batched(tree, nb, empty, red, comb):
     return comb(rep, shard)
 
 
+def _blk_leaves(blocks):
+    """The tensors of a `blocks` part: the one batched tensor, or the
+    per-bucket tensors of a bucketed LP."""
+    return tuple(blocks) if isinstance(blocks, (tuple, list)) else (blocks,)
+
+
 def _vdot(a, b):
     if a.numel() == 0:
         # cuBLAS writes an empty dot's 0 from host memory, a copy that a
@@ -187,7 +197,8 @@ def dot(a, b) -> torch.Tensor:
     for la, lb in zip(_space_leaves(a), _space_leaves(b)):
         if _is_space(la):
             rep = rep + _vdot(la.first, lb.first)
-            shard = shard + _vdot(la.blocks, lb.blocks)
+            for ba, bb in zip(_blk_leaves(la.blocks), _blk_leaves(lb.blocks)):
+                shard = shard + _vdot(ba, bb)
             if isinstance(la, RVec):
                 rep = rep + _vdot(la.link, lb.link)
         else:
@@ -204,7 +215,8 @@ def total_sum(a) -> torch.Tensor:
     for l in _space_leaves(a):
         if _is_space(l):
             rep = rep + torch.sum(l.first)
-            shard = shard + torch.sum(l.blocks)
+            for bl in _blk_leaves(l.blocks):
+                shard = shard + torch.sum(bl)
             if isinstance(l, RVec):
                 rep = rep + torch.sum(l.link)
         else:
@@ -226,7 +238,8 @@ def norm_inf(a) -> torch.Tensor:
     for l in _space_leaves(a):
         if _is_space(l):
             rep = torch.maximum(rep, mx(l.first))
-            shard = torch.maximum(shard, mx(l.blocks))
+            for bl in _blk_leaves(l.blocks):
+                shard = torch.maximum(shard, mx(bl))
             if isinstance(l, RVec):
                 rep = torch.maximum(rep, mx(l.link))
         else:
@@ -250,7 +263,8 @@ def min_reduce(a) -> torch.Tensor:
     for l in _space_leaves(a):
         if _is_space(l):
             rep = torch.minimum(rep, mn(l.first))
-            shard = torch.minimum(shard, mn(l.blocks))
+            for bl in _blk_leaves(l.blocks):
+                shard = torch.minimum(shard, mn(bl))
             if isinstance(l, RVec):
                 rep = torch.minimum(rep, mn(l.link))
         else:

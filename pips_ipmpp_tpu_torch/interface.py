@@ -3,16 +3,20 @@
 construct from problem data + options; run() -> TerminationStatus;
 getObjective(); the gather* accessors.
 
-The facade takes a DenseLP, an ArrowheadLP or a SparseArrowheadLP.
-`run()` presolves an ArrowheadLP when asked (host numpy, `presolve/`),
-applies the chosen scaler, and solves: a DenseLP with `DenseBackend`, an
-ArrowheadLP with the Schur-complement `ArrowBackend` (with
-`Options.hierarchical`, last, the hierarchical layout and
-`HierArrowBackend`), and a sparse LP whose dense twin does not fit
-`Options.sparse_densify_max_mb` with the CG-leaf `SparseArrowBackend`.
+The facade takes a DenseLP, an ArrowheadLP, a SparseArrowheadLP or a
+BucketedArrowheadLP.  `run()` presolves an ArrowheadLP when asked (host
+numpy, `presolve/`), applies the chosen scaler, and solves: a DenseLP
+with `DenseBackend`, an ArrowheadLP with the Schur-complement
+`ArrowBackend` (with `Options.banded_leaf` the banded leaf,
+`BandArrowBackend`, with `Options.banded_root` the banded root, both
+planned from the LP as given; with `Options.hierarchical`, last, the
+hierarchical layout and `HierArrowBackend`), a sparse LP whose dense twin
+does not fit `Options.sparse_densify_max_mb` with the CG-leaf
+`SparseArrowBackend`, and a bucketed LP with `BucketedArrowBackend`.
 The gathers report the original problem's space: they undo the scaling
 and, after presolve, postsolve the iterate; the linking rows come back in
-the user's order.
+the user's order, a bucketed LP's blocks in its bucket layout ([first |
+bucket 0's blocks | bucket 1's | ...]), as in the JAX package.
 The facade runs on the CUDA card unless the caller passes `device="cpu"`;
 the gathers read one host copy of the LP and one of the iterate.
 """
@@ -28,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pips_ipmpp_tpu_torch.core.bucketed import BucketedArrowheadLP
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, DenseLP
 from pips_ipmpp_tpu_torch.core.sparse import (Ell, SparseArrowheadLP,
                                               dense_bytes, dense_from_sparse)
@@ -64,9 +69,12 @@ def resolve_factor_dtype(opts: Options, device) -> torch.dtype:
 ROOT_F32_MAX = 2048
 
 
-def root_factor_dtype(lp: ArrowheadLP, fd: torch.dtype) -> torch.dtype:
+def root_factor_dtype(lp, fd: torch.dtype) -> torch.dtype:
     """The root's factor dtype for leaves factored in `fd`: f64 for an f32
-    root wider than ROOT_F32_MAX, else `fd`."""
+    root wider than ROOT_F32_MAX, else `fd` (an ArrowheadLP or a
+    BucketedArrowheadLP, whose buckets share one root)."""
+    if isinstance(lp, BucketedArrowheadLP):
+        lp = lp.buckets[0]
     ns = lp.n0 + lp.m0E + lp.m0I + lp.mEl + lp.mIl
     return torch.float64 if fd == torch.float32 and ns > ROOT_F32_MAX \
         else fd
@@ -80,16 +88,6 @@ def _auto_groups(N: int) -> int:
         if N % g == 0:
             best = g
     return best
-
-
-def _check_supported(opts: Options):
-    unported = {
-        "banded_leaf": opts.banded_leaf,
-        "banded_root": opts.banded_root,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"Options.{name} is not ported yet")
 
 
 def _solve_modes(opts: Options) -> list[str]:
@@ -107,6 +105,15 @@ def _numpy(tree):
     return tmap(lambda t: t.detach().cpu().numpy(), tree)
 
 
+def _blocks_op(blocks, factors, op):
+    """Elementwise op between a blocks part and matching scale factors:
+    both tuples (bucketed) or both batched arrays."""
+    if isinstance(blocks, (tuple, list)):
+        return tuple(op(np.asarray(b, np.float64), f)
+                     for b, f in zip(blocks, factors))
+    return op(np.asarray(blocks, np.float64), factors)
+
+
 def _ell_mv(ell: Ell, x: np.ndarray) -> np.ndarray:
     """y[i, r] = sum_k val[i, r, k] * x[i, col[i, r, k]] on numpy arrays."""
     N = ell.val.shape[0]
@@ -121,16 +128,24 @@ class PIPSIPMppTorchInterface:
 
     def __init__(self, lp, options: Optional[Options] = None, *,
                  device="cuda"):
-        if not isinstance(lp, (DenseLP, ArrowheadLP, SparseArrowheadLP)):
+        if not isinstance(lp, (DenseLP, ArrowheadLP, SparseArrowheadLP,
+                               BucketedArrowheadLP)):
             raise TypeError(f"unsupported problem type {type(lp)}: this "
-                            f"package solves DenseLP, ArrowheadLP and "
-                            f"SparseArrowheadLP")
+                            f"package solves DenseLP, ArrowheadLP, "
+                            f"SparseArrowheadLP and BucketedArrowheadLP")
         self.options = options or Options()
-        if (isinstance(lp, ArrowheadLP) and self.options.hierarchical
-                and (self.options.banded_leaf or self.options.banded_root)):
+        o = self.options
+        banded = o.banded_leaf or o.banded_root
+        if isinstance(lp, ArrowheadLP) and o.hierarchical and banded:
             raise ValueError("banded_leaf/banded_root are exclusive "
                              "with hierarchical mode")
-        _check_supported(self.options)
+        if isinstance(lp, BucketedArrowheadLP) and (banded
+                                                   or o.hierarchical):
+            raise ValueError("banded/hierarchical modes are not "
+                             "supported with bucketed blocks")
+        if isinstance(lp, DenseLP) and banded:
+            warnings.warn("banded_leaf/banded_root apply to ArrowheadLP "
+                          "only; ignored for DenseLP")
         self.device = torch.device(device)
         self.lp = lp.to(self.device)
         self.result = None
@@ -151,18 +166,33 @@ class PIPSIPMppTorchInterface:
             from pips_ipmpp_tpu_torch.linalg.dense_backend import \
                 DenseBackend
             be_cls = DenseBackend
+        elif isinstance(lp, BucketedArrowheadLP):
+            from pips_ipmpp_tpu_torch.linalg.bucket_backend import \
+                BucketedArrowBackend
+            be_cls = BucketedArrowBackend
+            kw.update(root_factor_dtype=root_factor_dtype(lp, fd))
         else:
             be_cls = ArrowBackend
         if isinstance(lp, ArrowheadLP):
             # the solve modes' backend options, as the JAX facade passes
             # them (a DenseLP and a densified sparse LP take none)
-            o = self.options
             kw.update(blockwise_sc=o.sc_blockwise,
                       iterative_root=o.iterative_root_panel,
                       sc_diag_dom_bound=o.sc_diag_dom_bound,
                       it_root_tol=o.it_root_tol,
                       it_root_maxiter=o.it_root_maxiter,
                       root_factor_dtype=root_factor_dtype(lp, fd))
+            # the banded modes' plans, host work on the LP as given
+            # (before presolve), as in the JAX facade
+            if o.banded_leaf:
+                from pips_ipmpp_tpu_torch.linalg.band_backend import (
+                    BandArrowBackend, plan_banded)
+                be_cls = BandArrowBackend
+                kw["plan"] = plan_banded(lp)
+            if o.banded_root:
+                from pips_ipmpp_tpu_torch.linalg.band_root import \
+                    plan_banded_root
+                kw["band_root_plan"] = plan_banded_root(lp)
         if isinstance(lp, SparseArrowheadLP):
             budget = self.options.sparse_densify_max_mb * 1024 * 1024
             if budget > 0 and dense_bytes(lp) <= budget:
@@ -286,12 +316,27 @@ class PIPSIPMppTorchInterface:
 
     def _np(self, name: str):
         """Field `name` of the (unpresolved, unscaled) LP as numpy f64 (an
-        Ell field as an Ell of numpy arrays), from one host copy."""
+        Ell field as an Ell of numpy arrays), from one host copy; of a
+        bucketed LP, the tuple of its buckets' fields."""
         if self._host is None:
-            self._host = _numpy({f.name: getattr(self.lp, f.name)
-                                 for f in dataclasses.fields(self.lp)})
-        v = self._host[name]
-        return v if isinstance(v, Ell) else np.asarray(v, np.float64)
+            lps = (self.lp.buckets if isinstance(self.lp, BucketedArrowheadLP)
+                   else (self.lp,))
+            self._host = [_numpy({f.name: getattr(b, f.name)
+                                  for f in dataclasses.fields(b)})
+                          for b in lps]
+
+        def f64(v):
+            return v if isinstance(v, Ell) else np.asarray(v, np.float64)
+
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return tuple(f64(h[name]) for h in self._host)
+        return f64(self._host[0][name])
+
+    def _np0(self, name: str) -> np.ndarray:
+        """A first-stage or linking field, which a bucketed LP's buckets
+        share: bucket 0's copy."""
+        v = self._np(name)
+        return v[0] if isinstance(self.lp, BucketedArrowheadLP) else v
 
     def _iterate(self):
         """One device->host copy of the solver's iterate, as numpy."""
@@ -390,6 +435,10 @@ class PIPSIPMppTorchInterface:
         gathered solution (reference PIPSIPMppInterface::getObjective
         :193-211)."""
         self._require_result()
+        if isinstance(self.lp, BucketedArrowheadLP):
+            # the pow2 scaling leaves the objective's value as it is, so
+            # the solver's objective is the original one
+            return float(self.result.objective)
         x = self.gatherPrimalSolution()
         if isinstance(self.lp, DenseLP):
             return float(np.dot(self._np("c"), x))
@@ -417,15 +466,23 @@ class PIPSIPMppTorchInterface:
     # reference does, PIPSIPMppInterface.cpp:337-384)
     @staticmethod
     def _flatcat(first, blocks, link=None) -> np.ndarray:
-        """[first | blocks.flat | link]."""
-        parts = [np.asarray(first, np.float64).reshape(-1),
-                 np.asarray(blocks, np.float64).reshape(-1)]
+        """[first | blocks.flat | link], `blocks` one batched array or a
+        tuple of per-bucket arrays."""
+        blocks = blocks if isinstance(blocks, (tuple, list)) else (blocks,)
+        parts = [np.asarray(first, np.float64).reshape(-1)] + [
+            np.asarray(b, np.float64).reshape(-1) for b in blocks]
         if link is not None:
             parts.append(np.asarray(link, np.float64).reshape(-1))
         return np.concatenate(parts)
 
     def _split_x(self, xflat: np.ndarray):
         lp = self.lp
+        if isinstance(lp, BucketedArrowheadLP):
+            xN, off = [], lp.n0
+            for b in lp.buckets:
+                xN.append(xflat[off:off + b.N * b.n].reshape(b.N, b.n))
+                off += b.N * b.n
+            return xflat[:lp.n0], xN
         return xflat[:lp.n0], xflat[lp.n0:].reshape(lp.N, lp.n)
 
     @staticmethod
@@ -435,7 +492,20 @@ class PIPSIPMppTorchInterface:
             return _ell_mv(mat, x)
         return np.einsum("nij,nj->ni", mat, x)
 
+    def _bucketed_mv(self, M0, Mb, Db, Ml0, Mlb, x0, xN) -> np.ndarray:
+        """[M0 x0 | Mb x0 + Db x_i per bucket | Ml0 x0 + sum Mlb x_i] of a
+        bucketed LP."""
+        g = self._np
+        rl = self._np0(Ml0) @ x0
+        rN = []
+        for A, B, F, xb in zip(g(Mb), g(Db), g(Mlb), xN):
+            rN.append(A @ x0 + np.einsum("nij,nj->ni", B, xb))
+            rl = rl + np.einsum("nij,nj->i", F, xb)
+        return self._flatcat(self._np0(M0) @ x0, rN, rl)
+
     def _arrow_Ax(self, x0, xN) -> np.ndarray:
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return self._bucketed_mv("A0", "A", "B", "F0", "F", x0, xN)
         g = self._np
         r0 = g("A0") @ x0
         rN = g("A") @ x0 + self._bd_mv(g("B"), xN)
@@ -443,6 +513,8 @@ class PIPSIPMppTorchInterface:
         return np.concatenate([r0, rN.reshape(-1), rl])
 
     def _arrow_Cx(self, x0, xN) -> np.ndarray:
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return self._bucketed_mv("C0", "C", "D", "G0", "G", x0, xN)
         g = self._np
         r0 = g("C0") @ x0
         rN = g("C") @ x0 + self._bd_mv(g("D"), xN)
@@ -484,11 +556,11 @@ class PIPSIPMppTorchInterface:
     def _gather_row_dual(self, vec, which: str, factors) -> np.ndarray:
         """Unpermute, then unscale, then flatten."""
         first = np.asarray(vec.first, np.float64)
-        blocks = np.asarray(vec.blocks, np.float64)
+        blocks = vec.blocks
         link = self._unpermute_link(np.asarray(vec.link, np.float64), which)
         if factors is not None:
             first = first * factors.first
-            blocks = blocks * factors.blocks
+            blocks = _blocks_op(blocks, factors.blocks, np.multiply)
             link = link * factors.link
         return self._flatcat(first, blocks, link)
 
@@ -529,10 +601,10 @@ class PIPSIPMppTorchInterface:
             v = np.asarray(vec, np.float64)
             return v * f[0] if f else v
         first = np.asarray(vec.first, np.float64)
-        blocks = np.asarray(vec.blocks, np.float64)
+        blocks = vec.blocks
         if f is not None:
             first = first * f[0].first
-            blocks = blocks * f[0].blocks
+            blocks = _blocks_op(blocks, f[0].blocks, np.multiply)
         return self._flatcat(first, blocks)
 
     def _gather_row_gap(self, vec, which: str) -> np.ndarray:
@@ -543,12 +615,12 @@ class PIPSIPMppTorchInterface:
             v = np.asarray(vec, np.float64)
             return v / f[2] if f else v
         first = np.asarray(vec.first, np.float64)
-        blocks = np.asarray(vec.blocks, np.float64)
+        blocks = vec.blocks
         link = self._unpermute_link(np.asarray(vec.link, np.float64), which)
         if f is not None:
             rc = f[2]
             first = first / rc.first
-            blocks = blocks / rc.blocks
+            blocks = _blocks_op(blocks, rc.blocks, np.divide)
             link = link / np.asarray(rc.link, np.float64)
         return self._flatcat(first, blocks, link)
 
@@ -560,10 +632,10 @@ class PIPSIPMppTorchInterface:
             v = np.asarray(vec, np.float64)
             return v / f[0] if f else v
         first = np.asarray(vec.first, np.float64)
-        blocks = np.asarray(vec.blocks, np.float64)
+        blocks = vec.blocks
         if f is not None:
             first = first / f[0].first
-            blocks = blocks / f[0].blocks
+            blocks = _blocks_op(blocks, f[0].blocks, np.divide)
         return self._flatcat(first, blocks)
 
     def _orig_var_bounds(self):
@@ -571,6 +643,10 @@ class PIPSIPMppTorchInterface:
         g = self._np
         if isinstance(self.lp, DenseLP):
             return g("ixlow"), g("xlow"), g("ixupp"), g("xupp")
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return tuple(self._flatcat(self._np0(a), g(b)) for a, b in
+                         (("ixlow0", "ixlowN"), ("xlow0", "xlowN"),
+                          ("ixupp0", "ixuppN"), ("xupp0", "xuppN")))
         return tuple(self._flatcat(g(a), g(b)) for a, b in
                      (("ixlow0", "ixlowN"), ("xlow0", "xlowN"),
                       ("ixupp0", "ixuppN"), ("xupp0", "xuppN")))
@@ -580,6 +656,10 @@ class PIPSIPMppTorchInterface:
         g = self._np
         if isinstance(self.lp, DenseLP):
             return g("iclow"), g("clow"), g("icupp"), g("cupp")
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return tuple(self._flatcat(self._np0(k + "0"), g(k + "N"),
+                                       self._np0(k + "l"))
+                         for k in ("iclow", "clow", "icupp", "cupp"))
         return tuple(self._flatcat(g(k + "0"), g(k + "N"), g(k + "l"))
                      for k in ("iclow", "clow", "icupp", "cupp"))
 
@@ -634,6 +714,8 @@ class PIPSIPMppTorchInterface:
         lp, g = self.lp, self._np
         if isinstance(lp, DenseLP):
             return g("c") - g("A").T @ y - g("C").T @ z
+        if isinstance(lp, BucketedArrowheadLP):
+            return self._bucketed_reduced_cost(y, z)
         y0, yN, yl = (y[:lp.m0E], y[lp.m0E:lp.m0E + lp.N * lp.mE]
                       .reshape(lp.N, lp.mE), y[lp.m0E + lp.N * lp.mE:])
         z0, zN, zl = (z[:lp.m0I], z[lp.m0I:lp.m0I + lp.N * lp.mI]
@@ -653,6 +735,32 @@ class PIPSIPMppTorchInterface:
               + DtZ + np.einsum("nij,i->nj", g("G"), zl))
         c = np.concatenate([g("c0"), g("cN").reshape(-1)])
         return c - np.concatenate([g0, gN.reshape(-1)])
+
+    def _bucketed_reduced_cost(self, y, z) -> np.ndarray:
+        """c - A'y - C'z of a bucketed LP from the gathered (unscaled)
+        duals.  The JAX package reads the solver's iterate here, which
+        differs from the gathered duals under a scaler (ROADMAP.md §3, F7);
+        without one the two agree."""
+        lp, g, g0 = self.lp, self._np, self._np0
+        m0E, m0I = lp.buckets[0].m0E, lp.buckets[0].m0I
+        y0, yl = y[:m0E], y[len(y) - lp.buckets[0].mEl:]
+        z0, zl = z[:m0I], z[len(z) - lp.buckets[0].mIl:]
+        gf = (g0("A0").T @ y0 + g0("F0").T @ yl + g0("C0").T @ z0
+              + g0("G0").T @ zl)
+        gN, oy, oz = [], m0E, m0I
+        for b, A, B, C, D, F, G in zip(lp.buckets, g("A"), g("B"), g("C"),
+                                       g("D"), g("F"), g("G")):
+            yb = y[oy:oy + b.N * b.mE].reshape(b.N, b.mE)
+            zb = z[oz:oz + b.N * b.mI].reshape(b.N, b.mI)
+            oy, oz = oy + b.N * b.mE, oz + b.N * b.mI
+            gf = gf + (np.einsum("nij,ni->j", A, yb)
+                       + np.einsum("nij,ni->j", C, zb))
+            gN.append(np.einsum("nij,ni->nj", B, yb)
+                      + np.einsum("nij,i->nj", F, yl)
+                      + np.einsum("nij,ni->nj", D, zb)
+                      + np.einsum("nij,i->nj", G, zl))
+        c = self._flatcat(g0("c0"), g("cN"))
+        return c - self._flatcat(gf, gN)
 
     def gatherDualSolutionVarBoundsLow(self) -> np.ndarray:
         """gamma (dual of x >= xlow), reference :333."""
@@ -715,6 +823,9 @@ class PIPSIPMppTorchInterface:
         g = self._np
         if isinstance(self.lp, DenseLP):
             return ax - g("b")
+        if isinstance(self.lp, BucketedArrowheadLP):
+            return ax - self._flatcat(self._np0("b0"), g("bN"),
+                                      self._np0("bl"))
         return ax - self._flatcat(g("b0"), g("bN"), g("bl"))
 
     def gatherPrimalResidsIneqLow(self) -> np.ndarray:
@@ -748,7 +859,7 @@ class PIPSIPMppTorchInterface:
         x = self.gatherPrimalSolution()
         if isinstance(self.lp, DenseLP):
             return float(np.dot(self._np("c"), x))
-        return float(np.dot(self._np("c0"), x[:self.lp.n0]))
+        return float(np.dot(self._np0("c0"), x[:self.lp.n0]))
 
     def getFirstStagePrimalColSolution(self) -> np.ndarray:
         """x0 (reference :419-422)."""
@@ -763,6 +874,11 @@ class PIPSIPMppTorchInterface:
         if isinstance(lp, DenseLP):
             raise TypeError("second-stage solution requires ArrowheadLP")
         x = self.gatherPrimalSolution()
+        if isinstance(lp, BucketedArrowheadLP):
+            bi, pos = lp.placement[scen]
+            off = lp.n0 + sum(b.N * b.n for b in lp.buckets[:bi])
+            nb = lp.buckets[bi].n
+            return x[off + pos * nb: off + (pos + 1) * nb]
         return x[lp.n0 + scen * lp.n: lp.n0 + (scen + 1) * lp.n]
 
     def allgatherBlocksizes(self) -> tuple:
@@ -781,6 +897,15 @@ class PIPSIPMppTorchInterface:
         if isinstance(lp, DenseLP):
             raise TypeError("allgatherBlocksizes requires a block problem")
         u32 = np.uint32
+        if isinstance(lp, BucketedArrowheadLP):
+            b0 = lp.buckets[0]
+            cols = [lp.n0] + [lp.buckets[bi].n for bi, _ in lp.placement]
+            eq = ([b0.m0E] + [lp.buckets[bi].mE for bi, _ in lp.placement]
+                  + [b0.mEl])
+            ineq = ([b0.m0I] + [lp.buckets[bi].mI for bi, _ in lp.placement]
+                    + [b0.mIl])
+            return (np.array(cols, u32), np.array(eq, u32),
+                    np.array(ineq, u32))
         cols = np.full(lp.N + 1, lp.n, u32)
         cols[0] = lp.n0
         eq = np.full(lp.N + 2, lp.mE, u32)

@@ -18,7 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, make_arrowhead_lp
+from pips_ipmpp_tpu_torch.core.lp import make_arrowhead_lp
 
 
 def csr_to_dense(m: int, n: int, krow, jcol, vals) -> np.ndarray:
@@ -154,23 +154,27 @@ class InputTree:
         return blocks, first, linking_eq, linking_ineq
 
     def build(self, dtype=torch.float64, max_block_vars: int | None = None,
-              bucketed: bool = False, device="cpu") -> ArrowheadLP:
-        """Assemble the batched problem.  `max_block_vars` splits
-        oversized blocks at intake (core/dissect.refine_blocks).
+              bucketed: bool = False, device="cpu"):
+        """Assemble the batched problem (an ArrowheadLP, or with
+        `bucketed` a BucketedArrowheadLP whose blocks keep their own
+        sizes, `core/bucketed.py`).  `max_block_vars` splits oversized
+        blocks at intake (core/dissect.refine_blocks).
 
         When blocks were split, `self.refine_placement[i]` holds the
         (new_block | FIRST, local_index) per original block-i variable so
         callers can map solutions back to the pre-split ordering."""
-        if bucketed:
-            raise NotImplementedError(
-                "InputTree.build(bucketed=True) is not ported yet "
-                "(ROADMAP.md §1: Bucket, the bucketed heterogeneous path)")
         blocks, first, linking_eq, linking_ineq = self._gather(_dense_mat)
         self.refine_placement = None
         if max_block_vars is not None:
             from pips_ipmpp_tpu_torch.core.dissect import refine_blocks
             blocks, first, self.refine_placement = refine_blocks(
                 blocks, first, max_block_vars)
+        if bucketed:
+            from pips_ipmpp_tpu_torch.core.bucketed import \
+                make_bucketed_arrowhead_lp
+            return make_bucketed_arrowhead_lp(
+                blocks, first, linking_eq, linking_ineq, dtype=dtype,
+                device=device)
         return make_arrowhead_lp(blocks, first, linking_eq, linking_ineq,
                                  dtype=dtype, device=device)
 

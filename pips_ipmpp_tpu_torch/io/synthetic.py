@@ -1,7 +1,8 @@
 """Synthetic arrowhead LP generators (benchmarks, smoke runs, tests).
 
 Counterparts of `random_arrowhead_lp`, `random_hier_arrowhead_lp` (with
-`refit_feasible`) and `random_sparse_arrowhead_lp` in
+`refit_feasible`), `random_sparse_arrowhead_lp`, `banded_arrowhead_lp`
+and `klink_arrowhead_lp` in
 `pips_ipmpp_tpu/io/synthetic.py`: the same `np.random.default_rng(seed)`
 draws in the same order and the same host arithmetic, so one seed gives
 bit-identical LP data in both packages.
@@ -269,3 +270,175 @@ def random_sparse_arrowhead_lp(seed, N=4, n=4096, mE=2048, mI=2048,
         ixlowN=ones(xlN), xlowN=arr(xlN), ixuppN=ones(xuN), xuppN=arr(xuN),
         F0=arr(F0), F=arr(F), bl=arr(bl), G0=arr(G0), G=arr(G),
         iclowl=ones(cll), clowl=arr(cll), icuppl=ones(cul), cuppl=arr(cul))
+
+
+def banded_arrowhead_lp(seed, N=4, n=512, mE=256, mI=256, window=8,
+                        n0=8, m0E=4, m0I=4, mEl=4, mIl=4,
+                        dtype=torch.float64, device="cpu") -> ArrowheadLP:
+    """Arrowhead LP whose block rows have LOCAL variable support (a
+    time-coupled dispatch structure): equality row r touches variables in a
+    `window`-wide window around position r*n/mE, inequalities likewise.
+    The condensed normal equations M M' are then sparse/banded — the
+    regime of the reference's sparse leaf solver (SparseStorage.C,
+    PardisoSchurSolver.C) — but rows of B and D interleave, so a
+    fill-reducing (RCM) ordering is required to expose the band.
+    Feasible by construction (rhs/bounds built around an interior x*)."""
+    rng = np.random.default_rng(seed)
+
+    def local_rows(m, nloc, w):
+        M = np.zeros((m, nloc))
+        for r in range(m):
+            c0 = int(round(r * (nloc - w) / max(m - 1, 1)))
+            M[r, c0:c0 + w] = rng.normal(size=w)
+            M[r, c0 + (r % w)] += 2.0      # well-conditioned diagonal-ish
+        return M
+
+    x0s = rng.normal(size=n0) * 0.5
+
+    def bounds_for(xs, nloc):
+        ixlow = np.ones(nloc)
+        xlow = xs - 0.5 - rng.random(nloc)
+        ixupp = (rng.random(nloc) < 0.7).astype(float)
+        xupp = np.where(ixupp > 0, xs + 0.5 + rng.random(nloc), 0.0)
+        return ixlow, xlow, ixupp, xupp
+
+    def ineq_bounds(Cx, m):
+        iclow = (rng.random(m) < 0.7).astype(float)
+        icupp = np.where(iclow > 0, (rng.random(m) < 0.5).astype(float), 1.0)
+        clow = np.where(iclow > 0, Cx - 0.3 - rng.random(m), 0.0)
+        cupp = np.where(icupp > 0, Cx + 0.3 + rng.random(m), 0.0)
+        return iclow, clow, icupp, cupp
+
+    blocks = []
+    xis = []
+    for i in range(N):
+        xi = rng.normal(size=n) * 0.5
+        xis.append(xi)
+        # sparse first-stage border: each row touches a couple of x0 vars
+        A = np.zeros((mE, n0))
+        A[np.arange(mE), rng.integers(0, n0, mE)] = rng.normal(size=mE) * 0.3
+        B = local_rows(mE, n, window)
+        b = A @ x0s + B @ xi
+        C = np.zeros((mI, n0))
+        C[np.arange(mI), rng.integers(0, n0, mI)] = rng.normal(size=mI) * 0.3
+        D = local_rows(mI, n, window)
+        Cx = C @ x0s + D @ xi
+        iclow, clow, icupp, cupp = ineq_bounds(Cx, mI)
+        ixlow, xlow, ixupp, xupp = bounds_for(xi, n)
+        F = rng.normal(size=(mEl, n)) * 0.05
+        G = rng.normal(size=(mIl, n)) * 0.05
+        blocks.append(dict(c=rng.normal(size=n), A=A, B=B, b=b, C=C, D=D,
+                           iclow=iclow, clow=clow, icupp=icupp, cupp=cupp,
+                           ixlow=ixlow, xlow=xlow, ixupp=ixupp, xupp=xupp,
+                           F=F, G=G))
+
+    A0 = rng.normal(size=(m0E, n0)) + np.eye(m0E, n0)
+    b0 = A0 @ x0s
+    C0 = rng.normal(size=(m0I, n0))
+    iclow0, clow0, icupp0, cupp0 = ineq_bounds(C0 @ x0s, m0I)
+    ixlow0, xlow0, ixupp0, xupp0 = bounds_for(x0s, n0)
+    F0 = rng.normal(size=(mEl, n0)) * 0.2
+    G0 = rng.normal(size=(mIl, n0)) * 0.2
+    first = dict(c=rng.normal(size=n0), A=A0, b=b0, C=C0,
+                 iclow=iclow0, clow=clow0, icupp=icupp0, cupp=cupp0,
+                 ixlow=ixlow0, xlow=xlow0, ixupp=ixupp0, xupp=xupp0,
+                 F0=F0, G0=G0)
+
+    bl = F0 @ x0s + sum(blk["F"] @ xi for blk, xi in zip(blocks, xis))
+    Gx = G0 @ x0s + sum(blk["G"] @ xi for blk, xi in zip(blocks, xis))
+    iclowl, clowl, icuppl, cuppl = ineq_bounds(Gx, mIl)
+
+    return make_arrowhead_lp(
+        blocks, first, linking_eq={"b": bl},
+        linking_ineq={"iclow": iclowl, "clow": clowl,
+                      "icupp": icuppl, "cupp": cuppl},
+        dtype=dtype, device=device)
+
+
+def klink_arrowhead_lp(seed, N=8, n=24, mE=8, mI=8, links_per_block=2,
+                       klink=2, n_global=0, n0=6, m0E=3, m0I=3,
+                       dtype=torch.float64, device="cpu") -> ArrowheadLP:
+    """Arrowhead LP whose linking rows have k-link structure: each row is
+    supported on `klink` CONSECUTIVE blocks (the reference's 2-link rows,
+    DistributedProblem.hpp:66-77), plus `n_global` all-block rows.  Split
+    evenly into eq/ineq linking rows.  Feasible by construction."""
+    rng = np.random.default_rng(seed)
+    owners = []          # (first_block, is_global)
+    for i in range(N):
+        owners += [(i, False)] * links_per_block
+    owners += [(0, True)] * n_global
+    nlink = len(owners)
+    mEl = nlink // 2
+    mIl = nlink - mEl
+    # interleave eq/ineq (exactly mEl eq rows) to exercise the planner
+    typemask = np.zeros(nlink, bool)
+    typemask[np.arange(nlink)[::2][:mEl]] = True
+    typemask[np.arange(nlink)[1::2][:mEl - typemask.sum()]] = True
+
+    x0s = rng.normal(size=n0) * 0.5
+
+    def bounds_for(xs, nloc):
+        ixlow = np.ones(nloc)
+        xlow = xs - 0.5 - rng.random(nloc)
+        ixupp = (rng.random(nloc) < 0.7).astype(float)
+        xupp = np.where(ixupp > 0, xs + 0.5 + rng.random(nloc), 0.0)
+        return ixlow, xlow, ixupp, xupp
+
+    def ineq_bounds(Cx, m):
+        iclow = (rng.random(m) < 0.7).astype(float)
+        icupp = np.where(iclow > 0, (rng.random(m) < 0.5).astype(float), 1.0)
+        clow = np.where(iclow > 0, Cx - 0.3 - rng.random(m), 0.0)
+        cupp = np.where(icupp > 0, Cx + 0.3 + rng.random(m), 0.0)
+        return iclow, clow, icupp, cupp
+
+    # linking coefficient strips: eq rows then ineq rows, per block
+    Fs = [np.zeros((mEl, n)) for _ in range(N)]
+    Gs = [np.zeros((mIl, n)) for _ in range(N)]
+    ei = ii = 0
+    for (blk0, is_glob), is_eq in zip(owners, typemask):
+        tgt, r = (Fs, ei) if is_eq else (Gs, ii)
+        span = range(N) if is_glob else range(
+            blk0, min(blk0 + klink, N))
+        for i in span:
+            tgt[i][r] = rng.normal(size=n) * 0.2
+        if is_eq:
+            ei += 1
+        else:
+            ii += 1
+
+    blocks, xis = [], []
+    for i in range(N):
+        xi = rng.normal(size=n) * 0.5
+        xis.append(xi)
+        A = rng.normal(size=(mE, n0)) * 0.3
+        B = rng.normal(size=(mE, n)) + np.eye(mE, n)
+        C = rng.normal(size=(mI, n0)) * 0.3
+        D = rng.normal(size=(mI, n))
+        Cx = C @ x0s + D @ xi
+        iclow, clow, icupp, cupp = ineq_bounds(Cx, mI)
+        ixlow, xlow, ixupp, xupp = bounds_for(xi, n)
+        blocks.append(dict(c=rng.normal(size=n), A=A, B=B,
+                           b=A @ x0s + B @ xi, C=C, D=D,
+                           iclow=iclow, clow=clow, icupp=icupp, cupp=cupp,
+                           ixlow=ixlow, xlow=xlow, ixupp=ixupp, xupp=xupp,
+                           F=Fs[i], G=Gs[i]))
+
+    A0 = rng.normal(size=(m0E, n0)) + np.eye(m0E, n0)
+    C0 = rng.normal(size=(m0I, n0))
+    iclow0, clow0, icupp0, cupp0 = ineq_bounds(C0 @ x0s, m0I)
+    ixlow0, xlow0, ixupp0, xupp0 = bounds_for(x0s, n0)
+    F0 = rng.normal(size=(mEl, n0)) * 0.1
+    G0 = rng.normal(size=(mIl, n0)) * 0.1
+    first = dict(c=rng.normal(size=n0), A=A0, b=A0 @ x0s, C=C0,
+                 iclow=iclow0, clow=clow0, icupp=icupp0, cupp=cupp0,
+                 ixlow=ixlow0, xlow=xlow0, ixupp=ixupp0, xupp=xupp0,
+                 F0=F0, G0=G0)
+
+    bl = F0 @ x0s + sum(F @ xi for F, xi in zip(Fs, xis))
+    Gx = G0 @ x0s + sum(G @ xi for G, xi in zip(Gs, xis))
+    iclowl, clowl, icuppl, cuppl = ineq_bounds(Gx, mIl)
+    return make_arrowhead_lp(
+        blocks, first, linking_eq={"b": bl},
+        linking_ineq={"iclow": iclowl, "clow": clowl,
+                      "icupp": icuppl, "cupp": cuppl},
+        dtype=dtype, device=device)

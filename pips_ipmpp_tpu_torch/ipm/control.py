@@ -270,7 +270,12 @@ def capture(device):
     not the stream the graph captures on, which is all PyTorch's own
     routing takes.  The allocator keeps one routing per pool, so the block
     swaps the capture's for the thread's and, at its end, back for one
-    that the capture's end removes."""
+    that the capture's end removes.  Each routing begun takes a reference
+    on the pool that ending it does not give back, and only the graph's
+    own reference is released when the graph dies: the two this block
+    adds are released after the capture, so that a dead graph's pool goes
+    back to the allocator (`torch.cuda.empty_cache`) instead of staying
+    reserved for the process's life."""
     idx = _index(device)
     pool = torch.cuda.graph_pool_handle()
     graph = torch.cuda.CUDAGraph()
@@ -282,3 +287,5 @@ def capture(device):
         finally:
             torch._C._cuda_endAllocateToPool(idx, pool)
             torch._C._cuda_beginAllocateCurrentStreamToPool(idx, pool)
+    for _ in range(2):
+        torch._C._cuda_releasePool(idx, pool)

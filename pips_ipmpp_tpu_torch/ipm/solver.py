@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pips_ipmpp_tpu_torch.core.bucketed import BucketedArrowheadLP
 from pips_ipmpp_tpu_torch.core.lp import stack_lps
 from pips_ipmpp_tpu_torch.core.options import Options
 from pips_ipmpp_tpu_torch.core.sparse import SparseArrowheadLP
@@ -264,9 +265,15 @@ class IPMSolver:
         eagerly.  Sparse LPs raise: their batch is not ported
         (ROADMAP.md §1: the sparse batch); so do the outer BiCGStab and
         the backend's blockwise and iterative-root modes (ROADMAP.md §1:
-        the fused batch under the solve modes), and the hierarchical
-        backend (ROADMAP.md §1: the fused batch under the hierarchy)."""
+        the fused batch under the solve modes), the hierarchical
+        backend (ROADMAP.md §1: the fused batch under the hierarchy), and
+        bucketed LPs and the banded backends (ROADMAP.md §1: the fused
+        batch under the banded and bucketed modes)."""
         lps = list(lps)
+        if any(isinstance(lp, BucketedArrowheadLP) for lp in lps):
+            raise NotImplementedError(
+                "a batch of bucketed LPs is not ported yet (ROADMAP.md §1: "
+                "the fused batch under the banded and bucketed modes)")
         if any(isinstance(lp, SparseArrowheadLP) for lp in lps):
             raise NotImplementedError(
                 "a batch of sparse LPs is not ported yet (ROADMAP.md §1: "

@@ -98,6 +98,10 @@ class ArrowFactors:
                                      # matvec)
     Pchol: Optional[torch.Tensor] = None  # [k, pb, pb] sparsified block-
                                      # Jacobi panels' Cholesky (sc_precond)
+    RbG: Optional[tuple] = None      # banded root (linalg/band_root.py):
+                                     # the permuted SDD's panel factors
+                                     # (Ginv, C[, U, W, Sinv of the peeled
+                                     # rows]); chol1 is then S11x's factor
 
 
 def _mv(A, x):
@@ -316,16 +320,23 @@ class ArrowBackend:
                  band_root_plan=None,
                  sweep_kernel: Optional[bool] = None,
                  root_factor_dtype: Optional[torch.dtype] = None):
-        for name, val in (("dist_root", dist_root),
-                          ("band_root_plan", band_root_plan)):
-            if val:
-                raise NotImplementedError(f"ArrowBackend({name}=...) is not "
-                                          f"ported yet")
+        if dist_root:
+            raise NotImplementedError(
+                "ArrowBackend(dist_root=...) is not ported yet (ROADMAP.md "
+                "§1: Distributed)")
+        if band_root_plan is not None and iterative_root:
+            raise ValueError("band_root_plan is exclusive with "
+                             "dist_root/iterative_root")
         if lp.batch_shape and (blockwise_sc or iterative_root):
             raise NotImplementedError(
                 "blockwise_sc and iterative_root over a stack of LPs are "
                 "not ported yet (ROADMAP.md §1: the fused batch under the "
                 "solve modes)")
+        if lp.batch_shape and band_root_plan is not None:
+            raise NotImplementedError(
+                "band_root_plan over a stack of LPs is not ported yet "
+                "(ROADMAP.md §1: the fused batch under the banded and "
+                "bucketed modes)")
         self.lp = lp
         self.batch_shape = lp.batch_shape
         self.factor_dtype = factor_dtype
@@ -366,6 +377,17 @@ class ArrowBackend:
         same = self.root_dtype == factor_dtype
         self.root_ldl = self.ldl_kernel and same
         self.root_explicit_inverse = self.explicit_inverse and same
+        # banded root (linalg/band_root.py): the 2-link linking structure
+        # makes the dual Schur complement banded after the plan's
+        # permutation; it takes the place of every other root mode
+        self.band_root_plan = band_root_plan
+        if band_root_plan is not None:
+            self._rb_perm = torch.as_tensor(band_root_plan.perm,
+                                            dtype=torch.int64,
+                                            device=lp.device)
+            self._rb_iperm = torch.as_tensor(band_root_plan.iperm,
+                                             dtype=torch.int64,
+                                             device=lp.device)
         self.bounds = Bounds(
             c=XVec(lp.c0, lp.cN),
             b=RVec(lp.b0, lp.bN, lp.bl),
@@ -453,7 +475,7 @@ class ArrowBackend:
         Neq = (torch.einsum("...iak,...ibk->...iab", MEi.to(fd), self.Mf)
                + torch.diag_embed(Fd.to(fd)))
         a = Neq.shape[-1]
-        flat = Neq.reshape(-1, a, a)
+        flat = Neq.flatten(0, -3)     # [B·N, a, a]; a bucket may have a = 0
 
         def unfold(t):
             return t.reshape(Neq.shape[:-2] + t.shape[1:])
@@ -587,6 +609,54 @@ class ArrowBackend:
         common = dict(L=L, Ninv=Ninv, Einv=Einv, Om=Om, Ux=Ux, Um=Um,
                       Om0=Om0, Oml=Oml, delta_p=delta_p, delta_d=delta_d)
 
+        if self.band_root_plan is not None:
+            # ---- banded root: the dual block eliminated FIRST by the
+            # block-tridiagonal Cholesky of the permuted SDD = -S22 (the
+            # 2-link sparse-SC exploitation, DistributedProblem.hpp:66-77),
+            # then the small primal Schur complement S11x = S11 + S12
+            # SDD^{-1} S12' factored dense.  Every factor takes the root's
+            # dtype: under the wide-root rule (interface.ROOT_F32_MAX, f32
+            # leaves) the panels, the peeled rows' block and S11x, the
+            # dense root-like block, are f64 and go through potf2 ----
+            from pips_ipmpp_tpu_torch.linalg.band_backend import \
+                block_tridiag_factor
+            plan = self.band_root_plan
+            b, nbp, kd = plan.panel, plan.n_panels, plan.n_dense
+            nband = nD - kd
+            P = self._rb_perm
+            SDD = -(S22[P][:, P]).to(fd)                 # SPD, banded+dense
+            Bb = SDD[:nband, :nband]
+            pad = nbp * b - nband
+            if pad:
+                Bb = torch.nn.functional.pad(Bb, (0, pad, 0, pad))
+                Bb[nband:, nband:] += torch.eye(pad, dtype=fd, device=dev)
+            grid = Bb.reshape(nbp, b, nbp, b)
+            # panel (k, k) and panel (k+1, k), as [nbp, 1, b, b]
+            Adiag = grid.diagonal(dim1=0, dim2=2).permute(2, 0, 1)[:, None]
+            Asub = torch.cat([
+                grid.diagonal(offset=-1, dim1=0, dim2=2).permute(2, 0, 1),
+                SDD.new_zeros((1, b, b))])[:, None]
+            Ginv, Cb, okd = block_tridiag_factor(Adiag, Asub)
+            if kd:
+                # peeled wide/global linking rows: trailing dense Schur
+                Ud = SDD[:nband, nband:]                 # [nband, kd]
+                Wdns = self._rb_band_solve(Ginv, Cb, Ud)
+                cholSd, okc = _root_cholesky(SDD[nband:, nband:]
+                                             - Ud.mT @ Wdns)
+                Sdinv_d = _bchol_solve(cholSd, torch.eye(
+                    kd, dtype=fd, device=dev))
+                okd = okd & okc & torch.isfinite(Sdinv_d).all()
+                Rb = (Ginv, Cb, Ud, Wdns, Sdinv_d)
+            else:
+                Rb = (Ginv, Cb)
+            S12p = S12[:, P].to(fd)                      # [n0, nD]
+            Td = self._rb_solve(Rb, S12p.mT)             # SDD^{-1} S12'
+            chol1, ok1 = _root_cholesky(S11.to(fd) + S12p @ Td)
+            return ArrowFactors(chol1=chol1, S11inv=None, T=S12p.to(dt),
+                                chol2=None, Sdinv=None, Einv0=Einv0,
+                                Sinv=None, ok=leaf_ok & okd & ok1, RbG=Rb,
+                                **common)
+
         if self.root_ldl:
             # ---- single quasidefinite root factor+inverse (LDL kernel):
             # SPD primal block, negative-definite dual block -> unpivoted
@@ -690,6 +760,32 @@ class ArrowBackend:
             n += 1
         return n
 
+    def _rb_band_solve(self, Ginv, Cb, rhs):
+        """Band-part solve for rhs [nband, c] (permuted order)."""
+        from pips_ipmpp_tpu_torch.linalg.band_backend import \
+            block_tridiag_solve
+        plan = self.band_root_plan
+        b, nbp = plan.panel, plan.n_panels
+        nband, c = rhs.shape
+        pad = nbp * b - nband
+        r = rhs if not pad else torch.cat([rhs, rhs.new_zeros((pad, c))])
+        x = block_tridiag_solve(Ginv, Cb, r.to(Ginv.dtype).reshape(
+            nbp, 1, b, c))
+        return x.reshape(nbp * b, c)[:nband]
+
+    def _rb_solve(self, Rb, rhs):
+        """Banded-root SDD^{-1} rhs for rhs [nD, c] (permuted order),
+        with the trailing peeled dense block through its Schur factors."""
+        if len(Rb) == 2:
+            return self._rb_band_solve(*Rb, rhs)
+        Ginv, Cb, Ud, Wdns, Sdinv = Rb
+        nband = Ud.shape[0]
+        r1, r2 = rhs[:nband], rhs[nband:]
+        u1 = self._rb_band_solve(Ginv, Cb, r1)
+        x2 = Sdinv @ (r2 - Ud.mT @ u1)
+        x1 = u1 - Wdns @ x2
+        return torch.cat([x1, x2])
+
     def _leaf_apply_inv(self, L, Ninv, Einv, rx, rm):
         """K_i^{-1} applied to (rx [N, n, c], rm [N, a, c]), multi-RHS."""
         fd = self.factor_dtype
@@ -757,6 +853,17 @@ class ArrowBackend:
         """Solve S [a; d] = [p; q] via the cached root factorization."""
         fd = self.root_dtype
         dt = p.dtype
+        if fac.RbG is not None:
+            # banded-root Dsolve: S11x a = p + S12 SDD^{-1} q;
+            # d = -SDD^{-1} (q - S12' a)   (two banded sweeps and one small
+            # dense solve: the 2-link root counterpart of Dsolve)
+            S12p = fac.T.to(fd)                          # [n0, nD] permuted
+            qp = q[self._rb_perm].to(fd)[:, None]
+            t = self._rb_solve(fac.RbG, qp)
+            a = _bchol_solve(fac.chol1, p.to(fd) + (S12p @ t)[:, 0])
+            rd = qp - (S12p.mT @ a)[:, None]
+            d = -self._rb_solve(fac.RbG, rd)[:, 0][self._rb_iperm]
+            return a.to(dt), d.to(dt)
         if fac.Sinv is not None:
             u = _mv(fac.Sinv, torch.cat([p, q], dim=-1).to(fd)).to(dt)
             return u[..., :p.shape[-1]], u[..., p.shape[-1]:]

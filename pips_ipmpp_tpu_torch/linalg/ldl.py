@@ -105,6 +105,8 @@ def _ldl_inverse_factors_cuda(A: torch.Tensor):
                            f"at B={B}, a={a}")
     ldl_inverse_factors.launches += 1
     ldl_inverse_factors.captured += torch.cuda.is_current_stream_capturing()
+    by = ldl_inverse_factors.launches_by
+    by[(B, a)] = by.get((B, a), 0) + 1
     return X, d
 
 
@@ -115,7 +117,8 @@ def ldl_inverse_factors(A: torch.Tensor):
     pivot vector [B, a] (negative entries are fine).  CPU tensors run the
     plain version; CUDA tensors launch the kernel and count the launch in
     `ldl_inverse_factors.launches` (one into a graph being captured also
-    in `ldl_inverse_factors.captured`)."""
+    in `ldl_inverse_factors.captured`) and per shape in
+    `ldl_inverse_factors.launches_by[(B, a)]`."""
     if A.device.type == "cpu":
         return ldl_inverse_factors_ref(A)
     if A.device.type == "cuda":
@@ -125,6 +128,7 @@ def ldl_inverse_factors(A: torch.Tensor):
 
 ldl_inverse_factors.launches = 0
 ldl_inverse_factors.captured = 0   # of those, into a captured CUDA graph
+ldl_inverse_factors.launches_by = {}
 
 
 def inverse_from_factors(X: torch.Tensor, d: torch.Tensor) -> torch.Tensor:

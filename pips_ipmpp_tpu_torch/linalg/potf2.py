@@ -73,6 +73,7 @@ def _potf2_cuda(A: torch.Tensor):
                            f"B={B}, n={n}")
     potf2.launches += 1
     potf2.captured += torch.cuda.is_current_stream_capturing()
+    potf2.launches_by[(B, n)] = potf2.launches_by.get((B, n), 0) + 1
     return L, info
 
 
@@ -80,7 +81,8 @@ def potf2(A: torch.Tensor):
     """(L, info) of `cholesky_potf2_ref` for the symmetric A [..., n, n]:
     the plain version for a CPU tensor, the kernel for a CUDA one, which
     counts its launch in `potf2.launches` (one into a graph being captured
-    also in `potf2.captured`)."""
+    also in `potf2.captured`) and per shape in `potf2.launches_by[(B,
+    n)]`."""
     if A.device.type == "cpu":
         return cholesky_potf2_ref(A)
     if A.device.type == "cuda":
@@ -90,6 +92,7 @@ def potf2(A: torch.Tensor):
 
 potf2.launches = 0
 potf2.captured = 0   # of those, into a captured CUDA graph
+potf2.launches_by = {}
 
 
 def cholesky_potf2(S: torch.Tensor):

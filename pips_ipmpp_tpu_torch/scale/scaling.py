@@ -3,7 +3,8 @@ r"""Problem scaling: geometric-mean, equilibrium (inf-norm), Curtis-Reid.
 Counterpart of `pips_ipmpp_tpu/scale/scaling.py` (reference
 Core/Preprocessing/Scaler.cpp, GeometricMeanScaler.C:21-171,
 EquilibriumScaler, CurtisReidScaler.cpp:318) for the flat DenseLP, the
-batched-dense ArrowheadLP and the ELL SparseArrowheadLP.  Scaling runs
+batched-dense ArrowheadLP, the ELL SparseArrowheadLP and the
+BucketedArrowheadLP.  Scaling runs
 once at setup, off the IPM hot path, on the LP's tensors.
 
 Transform (col scale s > 0, eq-row scale rE > 0, ineq-row scale rC > 0):
@@ -21,6 +22,7 @@ import dataclasses
 
 import torch
 
+from pips_ipmpp_tpu_torch.core.bucketed import BucketedArrowheadLP
 from pips_ipmpp_tpu_torch.core.lp import ArrowheadLP, DenseLP
 from pips_ipmpp_tpu_torch.core.options import ScalerType
 from pips_ipmpp_tpu_torch.core.sparse import Ell, SparseArrowheadLP
@@ -406,6 +408,63 @@ class _SparseEllView(_ArrowView):
         return SparseArrowheadLP(**kw)
 
 
+class _BucketedView:
+    """Stats/apply adapter for BucketedArrowheadLP: per-bucket _ArrowViews
+    with first-stage and link statistics aggregated across buckets.  The
+    scale factors carry `blocks` as a TUPLE of per-bucket tensors (the
+    bucketed XVec/RVec layout), so the unscaling maps work unchanged.
+    Min-statistic floors are per bucket (each bucket's own row/col max),
+    as in the JAX package: they affect the factors' quality, never the
+    exactness of the pow2 scaling."""
+
+    def __init__(self, lp: BucketedArrowheadLP):
+        self.lp = lp
+        self.views = [_ArrowView(b) for b in lp.buckets]
+
+    @staticmethod
+    def _split(s, rE, rC, b):
+        return (XVec(s.first, s.blocks[b]),
+                RVec(rE.first, rE.blocks[b], rE.link),
+                RVec(rC.first, rC.blocks[b], rC.link))
+
+    def ones(self):
+        per = [v.ones() for v in self.views]
+        s0, rE0, rC0 = per[0]
+        return (XVec(s0.first, tuple(p[0].blocks for p in per)),
+                RVec(rE0.first, tuple(p[1].blocks for p in per), rE0.link),
+                RVec(rC0.first, tuple(p[2].blocks for p in per), rC0.link))
+
+    def row_stats(self, s, rE, rC, op):
+        red = _red(op)
+        per = [v.row_stats(*self._split(s, rE, rC, b), op)
+               for b, v in enumerate(self.views)]
+
+        def combine(idx):
+            stats = [p[idx] for p in per]
+            link = stats[0].link
+            for st in stats[1:]:
+                link = red(link, st.link)   # every bucket's F/G strips
+            # the first stage's rows (A0/C0) are shared: identical
+            return RVec(stats[0].first, tuple(st.blocks for st in stats),
+                        link)
+
+        return combine(0), combine(1)
+
+    def col_stats(self, s, rE, rC, op):
+        red = _red(op)
+        per = [v.col_stats(*self._split(s, rE, rC, b), op)
+               for b, v in enumerate(self.views)]
+        first = per[0].first
+        for st in per[1:]:                  # each bucket's A/C borders
+            first = red(first, st.first)
+        return XVec(first, tuple(st.blocks for st in per))
+
+    def apply(self, s, rE, rC) -> BucketedArrowheadLP:
+        return BucketedArrowheadLP(
+            tuple(v.apply(*self._split(s, rE, rC, b))
+                  for b, v in enumerate(self.views)), self.lp.placement)
+
+
 def _view(lp):
     if isinstance(lp, DenseLP):
         return _DenseView(lp)
@@ -413,8 +472,10 @@ def _view(lp):
         return _ArrowView(lp)
     if isinstance(lp, SparseArrowheadLP):
         return _SparseEllView(lp)
-    raise TypeError(f"scaling supports DenseLP, ArrowheadLP and "
-                    f"SparseArrowheadLP, "
+    if isinstance(lp, BucketedArrowheadLP):
+        return _BucketedView(lp)
+    raise TypeError(f"scaling supports DenseLP, ArrowheadLP, "
+                    f"SparseArrowheadLP and BucketedArrowheadLP, "
                     f"got {type(lp).__name__}")
 
 
@@ -550,7 +611,84 @@ class CurtisReidScaler(_ScalerBase):
                                 0.0),
                     (m > 0).to(M.dtype))
 
-        if isinstance(view, _DenseView):
+        if isinstance(view, _BucketedView):
+            # per-bucket log/pattern tables; the first-stage (A0/C0/F0/G0)
+            # and linking aggregates counted ONCE from bucket 0's shared
+            # copies, border and diagonal contributions summed over buckets
+            tabs = []
+            for bk in lp.buckets:
+                LBb, PBb = {}, {}
+                for name in ("A0", "C0", "A", "B", "C", "D", "F0", "F",
+                             "G0", "G"):
+                    LBb[name], PBb[name] = logabs(getattr(bk, name))
+                tabs.append((LBb, PBb))
+
+            def build(which, t_sel):
+                p0, pb, pd, pl0, plb = (("A0", "A", "B", "F0", "F")
+                                        if which == "E"
+                                        else ("C0", "C", "D", "G0", "G"))
+                tab0 = tabs[0][t_sel]
+                first = tab0[p0].sum(-1)
+                link = tab0[pl0].sum(-1)
+                blocks = []
+                for tab in tabs:
+                    tb = tab[t_sel]
+                    blocks.append(tb[pb].sum(-1) + tb[pd].sum(-1))
+                    link = link + tb[plb].sum((0, 2))
+                return RVec(first, tuple(blocks), link)
+
+            sigmaE, cntE = build("E", 0), build("E", 1)
+            sigmaC, cntC = build("C", 0), build("C", 1)
+
+            def cols_build(t_sel):
+                tab0 = tabs[0][t_sel]
+                first = (tab0["A0"].sum(0) + tab0["C0"].sum(0)
+                         + tab0["F0"].sum(0) + tab0["G0"].sum(0))
+                blocks = []
+                for tab in tabs:
+                    tb = tab[t_sel]
+                    first = first + (tb["A"].sum((0, 1))
+                                     + tb["C"].sum((0, 1)))
+                    blocks.append(tb["B"].sum(1) + tb["D"].sum(1)
+                                  + tb["F"].sum(1) + tb["G"].sum(1))
+                return XVec(first, tuple(blocks))
+
+            sigmacol, cntcol = cols_build(0), cols_build(1)
+
+            def Pg(g: XVec):
+                PB0 = tabs[0][1]
+                firstE = PB0["A0"] @ g.first
+                firstC = PB0["C0"] @ g.first
+                linkE = PB0["F0"] @ g.first
+                linkC = PB0["G0"] @ g.first
+                blkE, blkC = [], []
+                for b, (_, Pb) in enumerate(tabs):
+                    gb = g.blocks[b]
+                    blkE.append(torch.einsum("imk,k->im", Pb["A"], g.first)
+                                + torch.einsum("imn,in->im", Pb["B"], gb))
+                    blkC.append(torch.einsum("imk,k->im", Pb["C"], g.first)
+                                + torch.einsum("imn,in->im", Pb["D"], gb))
+                    linkE = linkE + torch.einsum("iln,in->l", Pb["F"], gb)
+                    linkC = linkC + torch.einsum("iln,in->l", Pb["G"], gb)
+                return (RVec(firstE, tuple(blkE), linkE),
+                        RVec(firstC, tuple(blkC), linkC))
+
+            def PTr(rE_: RVec, rC_: RVec):
+                PB0 = tabs[0][1]
+                first = (PB0["A0"].T @ rE_.first + PB0["C0"].T @ rC_.first
+                         + PB0["F0"].T @ rE_.link + PB0["G0"].T @ rC_.link)
+                blocks = []
+                for b, (_, Pb) in enumerate(tabs):
+                    first = first + (
+                        torch.einsum("imk,im->k", Pb["A"], rE_.blocks[b])
+                        + torch.einsum("imk,im->k", Pb["C"], rC_.blocks[b]))
+                    blocks.append(
+                        torch.einsum("imn,im->in", Pb["B"], rE_.blocks[b])
+                        + torch.einsum("imn,im->in", Pb["D"], rC_.blocks[b])
+                        + torch.einsum("iln,l->in", Pb["F"], rE_.link)
+                        + torch.einsum("iln,l->in", Pb["G"], rC_.link))
+                return XVec(first, tuple(blocks))
+        elif isinstance(view, _DenseView):
             LA, PA = logabs(lp.A)
             LC, PC = logabs(lp.C)
             sigmaE, sigmaC = LA.sum(-1), LC.sum(-1)

@@ -193,7 +193,9 @@ def profile_fused(name, reps):
     warm-up turn, capture and solve), then `reps` warm solves timed on the
     host clock (each ends in the fetch of its result), the graph's replay
     alone timed with CUDA events (`chip_smoke.graph_ms`), and the host's
-    CUDA calls of one more warm solve under the profiler."""
+    CUDA calls of one more warm solve under the profiler.  `reps` 0 takes
+    the host's CUDA calls alone (no timing: `chip_smoke.fused_host_calls`
+    reads nothing else)."""
     if name in cs.BATCH_PATHS:
         return profile_fused_batch(name, reps)
     path, over = cs.FUSED_PATHS[name]
@@ -208,18 +210,21 @@ def profile_fused(name, reps):
         t0 = time.perf_counter()
         st.solver.solve_fused(st.lp)
         times.append(time.perf_counter() - t0)
-    solve_s = sorted(times)[len(times) // 2]
-    dev_ms = cs.graph_ms(st.solver)
     calls = cs.host_launches(lambda: st.solver.solve_fused(st.lp))
     it = res.iterations
-    print(json.dumps(dict(
-        path=name, fused=True, graph=res.info["graph"],
-        status=res.status.name, iterations=it, turns=res.info["turns"],
-        objective=res.objective, first_solve_s=first_s, solve_s=solve_s,
-        solve_s_all=times, iter_per_s=it / solve_s,
-        captured_launches=captured, host_calls_per_solve=calls,
-        graph_ms=dev_ms, device_ms_per_iteration=dev_ms / max(it, 1),
-        busy_share=dev_ms / 1e3 / solve_s)), flush=True)
+    out = dict(path=name, fused=True, graph=res.info["graph"],
+               status=res.status.name, iterations=it,
+               turns=res.info["turns"], objective=res.objective,
+               first_solve_s=first_s, captured_launches=captured,
+               host_calls_per_solve=calls)
+    if times:
+        solve_s = sorted(times)[len(times) // 2]
+        dev_ms = cs.graph_ms(st.solver)
+        out.update(solve_s=solve_s, solve_s_all=times,
+                   iter_per_s=it / solve_s, graph_ms=dev_ms,
+                   device_ms_per_iteration=dev_ms / max(it, 1),
+                   busy_share=dev_ms / 1e3 / solve_s)
+    print(json.dumps(out), flush=True)
 
 
 def profile_fused_batch(name, reps):

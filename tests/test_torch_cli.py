@@ -113,12 +113,13 @@ def test_cli_check_matches_jax(block_stem, capsys):
                                   "hierarchical", "bandedLeaf",
                                   "bandedRoot"])
 def test_cli_refusals_return_2(block_stem, tmp_path, capsys, case):
-    """Exits with code 2: a block file missing, `--auto-blocks` without a
-    count (as the JAX CLI), and the facade's refusal of a mode not ported
-    yet.  `hierarchical` is ported: it solves, with the JAX CLI's lines
-    (its log, iterations and objective; the time apart) and code 0."""
-    if case == "hierarchical":
-        argv = ["3", block_stem, "hierarchical"]
+    """Exits with code 2: a block file missing and `--auto-blocks` without
+    a count (as the JAX CLI).  The modes once refused are ported:
+    `hierarchical`, `bandedLeaf` and `bandedRoot` solve, with the JAX
+    CLI's lines (its log, iterations and objective; the time apart) and
+    code 0."""
+    if case in ("hierarchical", "bandedLeaf", "bandedRoot"):
+        argv = ["3", block_stem, case]
         (wrc, want, _), (grc, got, gerr) = (_run(main, argv, capsys)
                                             for main in (jmain, tmain))
         assert grc == wrc == 0 and not gerr
@@ -146,14 +147,9 @@ def test_cli_refusals_return_2(block_stem, tmp_path, capsys, case):
         path = str(tmp_path / "e.mps")
         write_mps(path, *dispatch_blocks(**SMALL_ENERGY)[:4])
         argv = ["--mps", path, "--auto-blocks", "printsol"]
-    else:
-        argv = ["3", block_stem, case]
     rc, _, err = _run(tmain, argv, capsys)
     assert rc == 2 and err.startswith("error:")
-    if case in ("missing_block_file", "auto_blocks_no_k"):
-        assert _run(jmain, argv, capsys)[::2] == (rc, err)
-    else:
-        assert "not ported yet" in err
+    assert _run(jmain, argv, capsys)[::2] == (rc, err)
 
 
 def test_cli_solves_on_the_card_by_default(block_stem, monkeypatch):

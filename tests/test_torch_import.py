@@ -40,7 +40,11 @@ def test_import_leaves_jax_out():
             "          'pips_ipmpp_tpu_torch.cli',\n"
             "          'pips_ipmpp_tpu_torch.ipm.checkpoint',\n"
             "          'pips_ipmpp_tpu_torch.utils.monitor',\n"
-            "          'pips_ipmpp_tpu_torch.linalg.hier_backend'}\n"
+            "          'pips_ipmpp_tpu_torch.linalg.hier_backend',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.band_backend',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.band_root',\n"
+            "          'pips_ipmpp_tpu_torch.linalg.bucket_backend',\n"
+            "          'pips_ipmpp_tpu_torch.core.bucketed'}\n"
             "assert needed <= set(names), needed - set(names)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'pips_ipmpp_tpu' or "

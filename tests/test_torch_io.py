@@ -286,8 +286,18 @@ def test_callback_tree_matches_jax(how):
 
 
 def test_callback_tree_refuses_bucketed():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1: Bucket"):
-        _callback_tree(callbacks).build(bucketed=True)
+    """`build(bucketed=True)` is ported: the same buckets, placement and
+    per-bucket arrays as the JAX package's, bit for bit (the same with
+    intake refinement, `max_block_vars`, as the JAX package passes it)."""
+    for kw in ({}, dict(max_block_vars=40)):
+        want = _callback_tree(jcallbacks).build(bucketed=True, **kw)
+        tree = _callback_tree(callbacks)
+        got = tree.build(bucketed=True, **kw)
+        assert got.placement == want.placement
+        assert len(got.buckets) == len(want.buckets)
+        for g, w in zip(got.buckets, want.buckets):
+            _assert_lp_equal(g, bridge.lp_from_numpy(
+                jax_fields(w), device="cpu", dtype=torch.float64))
 
 
 # ---- GAMS -------------------------------------------------------------------

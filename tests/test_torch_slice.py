@@ -127,9 +127,11 @@ def test_facade_rejects_unported_input():
                                    device="cpu")
     with pytest.raises(RuntimeError):
         hier.getObjective()                  # before run()
-    with pytest.raises(NotImplementedError):
-        PIPSIPMppTorchInterface(lp, Options(banded_leaf=True),
-                                device="cpu")
+    # so are the banded modes: the facade plans and routes them
+    from pips_ipmpp_tpu_torch.linalg.band_backend import BandArrowBackend
+    band = PIPSIPMppTorchInterface(lp, Options(banded_leaf=True),
+                                   device="cpu")
+    assert band.backend_class is BandArrowBackend
     if not torch.cuda.is_available():
         # the default device is the card: nothing falls back to the CPU
         with pytest.raises((AssertionError, RuntimeError)):

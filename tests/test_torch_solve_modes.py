@@ -469,8 +469,10 @@ def test_troubles_hook_contract():
 @pytest.mark.parametrize("name", ["hierarchical", "banded_leaf",
                                   "banded_root"])
 def test_facade_still_refuses(name):
-    """The banded modes are not ported; the hierarchy is, and refuses a
-    banded mode beside it with the JAX facade's ValueError."""
+    """The hierarchy and the banded modes are ported; the hierarchy
+    refuses a banded mode beside it with the JAX facade's ValueError, and
+    a banded mode refuses the iterative root beside it (the JAX
+    package's ValueError: both replace the dual Schur factorization)."""
     lp = random_arrowhead_lp(0, N=2, n=3, mE=1, mI=1, n0=2, m0E=1, m0I=1,
                              mEl=1, mIl=1)
     if name == "hierarchical":
@@ -479,8 +481,14 @@ def test_facade_still_refuses(name):
                                                 banded_root=True),
                                     device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=name):
-        PIPSIPMppTorchInterface(lp, Options(**{name: True}), device="cpu")
+    iface = PIPSIPMppTorchInterface(lp, Options(**{name: True}),
+                                    device="cpu")
+    assert iface.run() == TerminationStatus.SUCCESSFUL_TERMINATION
+    if name == "banded_root":
+        with pytest.raises(ValueError, match="exclusive"):
+            PIPSIPMppTorchInterface(
+                lp, Options(banded_root=True, iterative_root_panel=16),
+                device="cpu").run()
 
 
 MODE_OPTIONS = {"outer_bicgstab": dict(outer_bicgstab=True),
